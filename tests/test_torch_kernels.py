@@ -1,0 +1,257 @@
+"""The two hand-written kernels' plain versions against the JAX code they
+replace, on numpy-seeded inputs and the edge cases each must keep:
+
+* K1h ``fdet_select`` — the compact fail-detail select of the JAX
+  ``evaluate_packed`` (``keys = where(rel, col, C)``, per-row sort, first
+  k, clamped gather);
+* K1c ``wildcard_match`` — ``_View.wildcard_const`` of the JAX
+  evaluator (glob DP over the byte window, Kleene verdict).
+
+On the CPU each wrapper takes its plain version and counts no launch.
+The kernels themselves run only on a CUDA card: those tests skip here
+and run on the card with ``python -m pytest tests/test_torch_kernels.py``
+(``chip_smoke.py`` also holds both kernels against their plain versions
+at the main path's shapes).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from kyverno_tpu.compiler.ir import (TAG_ARRAY, TAG_BOOL, TAG_FLOAT,
+                                     TAG_INT, TAG_MAP, TAG_MISSING,
+                                     TAG_NULL, TAG_STRING)
+from kyverno_tpu.ops.eval import _View
+from kyverno_tpu_torch.ops import kernels
+
+ALL_TAGS = (TAG_MISSING, TAG_NULL, TAG_BOOL, TAG_INT, TAG_FLOAT, TAG_STRING,
+            TAG_MAP, TAG_ARRAY)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the hand-written kernels have no '
+                    'CPU mode (their plain versions are tested here)')
+    return torch.device('cuda')
+
+
+# ---------------------------------------------------------------------------
+# K1h
+
+def jax_fdet_select(rel: np.ndarray, fdet_u: np.ndarray, k: int):
+    """The JAX evaluator's formulation (kyverno_tpu/ops/eval.py
+    evaluate_packed, the fixed-budget fail-detail select)."""
+    c = fdet_u.shape[1]
+    col_idx = jnp.arange(c, dtype=jnp.int32)
+    keys = jnp.where(jnp.asarray(rel), col_idx, jnp.int32(c))
+    order = jnp.sort(keys, axis=1)[:, :k]
+    fds = jnp.take_along_axis(
+        jnp.asarray(fdet_u), jnp.minimum(order, c - 1).astype(jnp.int32),
+        axis=1)
+    return np.asarray(jnp.concatenate([order, fds.astype(jnp.int32)],
+                                      axis=1))
+
+
+def _k1h_inputs(rows, cols, density, seed):
+    rng = np.random.default_rng(seed)
+    rel = rng.random((rows, cols)) < density
+    fdet = rng.integers(-3, 1 << 24, (rows, cols)).astype(np.int32)
+    return rel, fdet
+
+
+@pytest.mark.parametrize('rows,cols,k,density', [
+    (64, 26, 26, 0.3),      # k == C (the smoke pack's width)
+    (64, 40, 32, 0.5),      # C > K: budget binds
+    (64, 10, 10, 0.0),      # no relevant column
+    (64, 32, 32, 1.0),      # exactly k relevant in every row
+    (64, 90, 32, 0.9),      # more than k relevant
+    (5, 1, 1, 0.5),         # one column
+    (3, 7, 0, 0.5),         # k == 0
+    (0, 5, 5, 0.5),         # no rows
+])
+def test_k1h_plain_matches_jax(rows, cols, k, density):
+    rel, fdet = _k1h_inputs(rows, cols, density, seed=rows * 31 + cols)
+    want = jax_fdet_select(rel, fdet, k)
+    got = kernels.fdet_select_plain(torch.from_numpy(rel),
+                                    torch.from_numpy(fdet), k)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_k1h_zero_columns():
+    rel = np.zeros((4, 0), bool)
+    fdet = np.zeros((4, 0), np.int32)
+    got = kernels.fdet_select(torch.from_numpy(rel), torch.from_numpy(fdet),
+                              0)
+    assert tuple(got.shape) == (4, 0)
+    assert jax_fdet_select(rel, fdet, 0).shape == (4, 0)
+
+
+def test_k1h_library_yardstick_matches():
+    rel, fdet = _k1h_inputs(50, 40, 0.4, seed=3)
+    a = kernels.fdet_select_library(torch.from_numpy(rel),
+                                    torch.from_numpy(fdet), 32)
+    assert np.array_equal(a.numpy(), jax_fdet_select(rel, fdet, 32))
+
+
+def test_k1h_cpu_wrapper_takes_plain_and_counts_nothing():
+    kernels.reset_launches()
+    rel, fdet = _k1h_inputs(20, 12, 0.5, seed=9)
+    got = kernels.fdet_select(torch.from_numpy(rel), torch.from_numpy(fdet),
+                              12)
+    want = kernels.fdet_select_plain(torch.from_numpy(rel),
+                                     torch.from_numpy(fdet), 12)
+    assert torch.equal(got, want)
+    assert kernels.LAUNCHES['k1h_fdet_select'] == 0
+
+
+def test_k1h_wrapper_checks():
+    rel, fdet = _k1h_inputs(4, 6, 0.5, seed=1)
+    with pytest.raises(ValueError):
+        kernels.fdet_select(torch.from_numpy(rel),
+                            torch.from_numpy(fdet).long(), 4)
+    with pytest.raises(ValueError):
+        kernels.fdet_select(torch.from_numpy(rel), torch.from_numpy(fdet), 7)
+
+
+@pytest.mark.cuda
+def test_k1h_cuda_kernel_matches_plain(cuda):
+    for rows, cols, k, density in [(16384, 26, 26, 0.3), (999, 70, 32, 0.6),
+                                   (31, 1, 1, 0.5), (40, 33, 32, 1.0)]:
+        rel, fdet = _k1h_inputs(rows, cols, density, seed=cols)
+        rel_t, fd_t = torch.from_numpy(rel), torch.from_numpy(fdet)
+        before = kernels.LAUNCHES['k1h_fdet_select']
+        got = kernels.fdet_select(rel_t.to(cuda), fd_t.to(cuda), k)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES['k1h_fdet_select'] == before + 1
+        assert torch.equal(got.cpu(), kernels.fdet_select_plain(rel_t, fd_t,
+                                                                k))
+
+
+# ---------------------------------------------------------------------------
+# K1c
+
+def jax_wildcard(head, str_len, tag, pattern: str):
+    t = {'x_str_head': jnp.asarray(head), 'x_str_len': jnp.asarray(str_len),
+         'x_tag': jnp.asarray(tag)}
+    k = _View(t, 'x').wildcard_const(pattern)
+    return np.asarray(k.t), np.asarray(k.f)
+
+
+def _k1c_inputs(n, w, seed, alphabet=b'ab:-*?x\xc3\xa9latest'):
+    """Values of every length class: empty, inside the window, exactly
+    the window, past it (only the first w bytes are kept, as the
+    encoder does), with non-ASCII bytes, under every tag."""
+    rng = np.random.default_rng(seed)
+    head = np.zeros((n, w), np.uint8)
+    str_len = np.zeros(n, np.int32)
+    for i in range(n):
+        ln = int(rng.choice([0, 1, 3, max(w - 1, 0), w, w + 4,
+                             int(rng.integers(0, w + 1))]))
+        body = rng.choice(np.frombuffer(alphabet, np.uint8), size=min(ln, w))
+        head[i, :len(body)] = body
+        str_len[i] = ln
+    tag = rng.choice(np.array(ALL_TAGS + (TAG_STRING,) * 4, np.int8), n)
+    return head, str_len, tag
+
+
+PATTERNS = ['*:*', '*', '?', '?*', '', 'a?b*', '*latest', '**a**', 'ab',
+            'é?', '?é*', 'a' * 70, ':*:', '*-*-*']
+
+
+@pytest.mark.parametrize('w', [64, 16, 1])
+@pytest.mark.parametrize('pattern', PATTERNS)
+def test_k1c_plain_matches_jax(pattern, w):
+    head, str_len, tag = _k1c_inputs(300, w, seed=w + len(pattern))
+    want_t, want_f = jax_wildcard(head, str_len, tag, pattern)
+    got_t, got_f = kernels.wildcard_plain(
+        torch.from_numpy(head), torch.from_numpy(str_len),
+        torch.from_numpy(tag), pattern.encode())
+    assert np.array_equal(got_t.numpy(), want_t)
+    assert np.array_equal(got_f.numpy(), want_f)
+
+
+def test_k1c_element_axes_match_jax():
+    """[R, E, w] windows (per-container lanes), as the evaluator passes
+    them."""
+    head, str_len, tag = _k1c_inputs(4 * 5, 64, seed=11)
+    head, str_len, tag = (head.reshape(4, 5, 64), str_len.reshape(4, 5),
+                          tag.reshape(4, 5))
+    want_t, want_f = jax_wildcard(head, str_len, tag, '*:*')
+    got_t, got_f = kernels.wildcard_match(
+        torch.from_numpy(head), torch.from_numpy(str_len),
+        torch.from_numpy(tag), b'*:*')
+    assert got_t.shape == (4, 5)
+    assert np.array_equal(got_t.numpy(), want_t)
+    assert np.array_equal(got_f.numpy(), want_f)
+
+
+def test_k1c_verdict_cases():
+    """Hand-picked cases: '?' over non-ASCII and over-window values are
+    undecidable for strings (neither t nor f); arrays are never f;
+    non-string scalars match through their string form."""
+    cases = [  # (bytes, str_len, tag, pattern, t, f)
+        (b'nginx:1', 7, TAG_STRING, '*:*', True, False),
+        (b'nginx', 5, TAG_STRING, '*:*', False, True),
+        (b'\xc3\xa9', 2, TAG_STRING, '?', False, False),
+        (b'\xc3\xa9', 2, TAG_STRING, '*', True, False),
+        (b'ab', 70, TAG_STRING, 'ab*', False, False),
+        (b'', 0, TAG_ARRAY, '*', False, False),
+        (b'', 0, TAG_MAP, '*', False, True),
+        (b'12', 2, TAG_INT, '1?', True, False),
+        (b'', 0, TAG_STRING, '', True, False),
+        (b'', 0, TAG_STRING, '?*', False, True),
+    ]
+    w = 64
+    head = np.zeros((len(cases), w), np.uint8)
+    for i, c in enumerate(cases):
+        head[i, :len(c[0])] = np.frombuffer(c[0], np.uint8)
+    str_len = np.array([c[1] for c in cases], np.int32)
+    tag = np.array([c[2] for c in cases], np.int8)
+    for i, (_b, _l, _tg, pat, t_exp, f_exp) in enumerate(cases):
+        t, f = kernels.wildcard_match(
+            torch.from_numpy(head[i:i + 1]), torch.from_numpy(str_len[i:i + 1]),
+            torch.from_numpy(tag[i:i + 1]), pat.encode())
+        jt, jf = jax_wildcard(head[i:i + 1], str_len[i:i + 1],
+                              tag[i:i + 1], pat)
+        assert (bool(t[0]), bool(f[0])) == (t_exp, f_exp), cases[i]
+        assert (bool(jt[0]), bool(jf[0])) == (t_exp, f_exp), cases[i]
+
+
+def test_k1c_cpu_wrapper_takes_plain_and_counts_nothing():
+    kernels.reset_launches()
+    head, str_len, tag = _k1c_inputs(50, 64, seed=2)
+    args = (torch.from_numpy(head), torch.from_numpy(str_len),
+            torch.from_numpy(tag), b'*:*')
+    got = kernels.wildcard_match(*args)
+    want = kernels.wildcard_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert kernels.LAUNCHES['k1c_wildcard'] == 0
+
+
+def test_k1c_wrapper_checks():
+    head, str_len, tag = _k1c_inputs(4, 8, seed=3)
+    with pytest.raises(ValueError):
+        kernels.wildcard_match(torch.from_numpy(head),
+                               torch.from_numpy(str_len).long(),
+                               torch.from_numpy(tag), b'*')
+    with pytest.raises(ValueError):
+        kernels.wildcard_match(torch.from_numpy(head)[:2],
+                               torch.from_numpy(str_len),
+                               torch.from_numpy(tag), b'*')
+
+
+@pytest.mark.cuda
+def test_k1c_cuda_kernel_matches_plain(cuda):
+    for w in (64, 16, 1):
+        head, str_len, tag = _k1c_inputs(4096, w, seed=w)
+        args = [torch.from_numpy(a) for a in (head, str_len, tag)]
+        for pattern in PATTERNS:
+            pb = pattern.encode()
+            want = kernels.wildcard_plain(*args, pb)
+            got = kernels.wildcard_match(*[a.to(cuda) for a in args], pb)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0].cpu(), want[0]), (w, pattern)
+            assert torch.equal(got[1].cpu(), want[1]), (w, pattern)
