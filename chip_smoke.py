@@ -20,7 +20,34 @@ CUDA card and checks it, in phases that each print one line:
    rows and every row of the last chunk are held against the port's
    host ``Engine``; any mismatch fails the run.
 
-Then one JSON line of per-kernel numbers, the nvidia-smi line, and as the
+4. ``k3``: the mutate kernel (K3) against its plain version on the card,
+   on the lanes of one full chunk of the mutate pack, a seeded random
+   case (8 rules of 32 sites, a 256-byte window, 10 % padding rows) and
+   a program with no sites.  Outputs must be exactly equal.
+5. ``mutate``: ``MutateScanner.scan`` over one full chunk (16,384 Pods)
+   of the mutate pack: rows/s, the FALLBACK rows, K3's launches; 256
+   sampled rows are held against the host engine's mutate chain.
+6. ``admission``: the admission webhook, ``WebhookServer.handle`` on
+   ``/validate/fail`` and ``/mutate``, over the smoke pack in Enforce plus
+   the mutate pack, with the scanners on the card.  A sync pass (500 +
+   500 sequential reviews) and a batch pass (the micro-batcher, 16
+   client threads, 8,000 reviews: CREATE and UPDATE, 8 users, 7
+   namespaces), every review with Kyverno's default 10 s timeout.
+   Response bytes of every sync review and of 2,000 batch reviews are
+   held against a host-loop handler (``device=False``).  Before the
+   passes, one sync review of each route is served with the kernel
+   wrappers spied on, and each kernel is held against its plain version
+   on the exact card tensors that review gave it (K1h and K1c at the
+   64-row admission capacity, K3 at the /mutate lanes).  Because the
+   handler serves a failed device path from the host engine with the
+   same bytes, the phase also counts the serving path of each validate
+   decision (decision provenance), the rows the mutate scanner
+   dispatched and the breaker failures, and fails unless the device
+   served (see ``admission_phase``).
+
+Then one JSON line of per-kernel numbers (launches on the admission
+path, with the error, times and bound at the admission shapes; the
+chunk-shape numbers are in the report), the nvidia-smi line, and as the
 last line ``{"ok": true, "device": {...}}``.  A full report goes to
 ``chiprun_out/chip_smoke.json``.
 
@@ -49,6 +76,18 @@ CHECK_HEAD = 2000              # rows held against the host engine, plus
 MIN_PODS = 3 * 16384 + 1       # never cut below three full chunks
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 CUDA_CORE_OPS_PER_S = 67e12    # H100 SXM non-tensor rate (data sheet)
+PCIE_BYTES_PER_S = 64e9        # PCIe Gen5 x16, one direction (data sheet)
+SCAN_KERNELS = ('k1h_fdet_select', 'k1c_wildcard')  # launched by the scan
+MUTATE_CHUNK = 16384           # rows of the mutate-chunk phase
+MUTATE_CHECK = 256             # of them held against the host chain
+SYNC_REVIEWS = 500             # per route, sequential
+BATCH_REVIEWS = 8000           # both routes, over BATCH_CLIENTS threads
+BATCH_CLIENTS = 16
+BATCH_ORACLE = 2000            # batch reviews held against the host loop
+READY_S = 300.0                # bound on the wait for the scanners
+#: a kernel record's numbers that belong to the shapes it was run at
+AT_SHAPE = ('ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
+            'kernel_device_ms', 'shape')
 
 
 def _die(msg: str) -> None:
@@ -110,7 +149,6 @@ def first_chunk_inputs(scanner, pods, device):
     from kyverno_tpu_torch.api.unstructured import Resource
     from kyverno_tpu_torch.compiler import admission as admission_lanes
     from kyverno_tpu_torch.compiler.encode import encode_batch
-    from kyverno_tpu_torch.ops import kernels
     from kyverno_tpu_torch.ops.eval import fold_match_unique, shard_batch
     chunk = scanner.CHUNK
     part = pods[:chunk]
@@ -125,23 +163,7 @@ def first_chunk_inputs(scanner, pods, device):
         tensors.update(admission_lanes.zero_lanes(scanner._adm, chunk))
     packed, layout = shard_batch(tensors, device)
 
-    seen = {'fdet_select': [], 'wildcard_match': []}
-    real_fs, real_wm = kernels.fdet_select, kernels.wildcard_match
-
-    def spy_fs(rel, fdet_u, k):
-        seen['fdet_select'].append((rel.clone(), fdet_u.clone(), k))
-        return real_fs(rel, fdet_u, k)
-
-    def spy_wm(head, str_len, tag, pattern):
-        seen['wildcard_match'].append(
-            (head.clone(), str_len.clone(), tag.clone(), pattern))
-        return real_wm(head, str_len, tag, pattern)
-
-    kernels.fdet_select, kernels.wildcard_match = spy_fs, spy_wm
-    try:
-        ev(packed, layout)
-    finally:
-        kernels.fdet_select, kernels.wildcard_match = real_fs, real_wm
+    _, seen = capture_kernel_inputs(lambda: ev(packed, layout))
     # one more call, timed: the host clock covers the Python dispatch of
     # the whole op chain, the CUDA events the device span it enqueued
     if device.type == 'cuda':
@@ -159,37 +181,90 @@ def first_chunk_inputs(scanner, pods, device):
         torch.cuda.synchronize()
         dev_ms = e0.elapsed_time(e1)
     busy_ms = _device_busy_ms(lambda: ev(packed, layout), device)
+    packed_bytes = int(sum(v.numel() * v.element_size()
+                           for v in packed.values()))
+    out_bytes = int(sum(o.numel() * o.element_size() for o in out))
     chunk_stats = {'rows': chunk, 'host_dispatch_ms': host_ms,
                    'device_span_ms': dev_ms, 'device_busy_ms': busy_ms,
-                   'packed_bytes': int(sum(v.numel() * v.element_size()
-                                           for v in packed.values())),
+                   'packed_bytes': packed_bytes, 'out_bytes': out_bytes,
                    'out8_shape': list(out[0].shape),
-                   'out32_shape': list(out[1].shape)}
+                   'out32_shape': list(out[1].shape),
+                   # K1: the packed input read once, out8/out32 written
+                   # once, over the card's memory rate; K2: the packed
+                   # input over the host link
+                   'k1_bound_ms': (packed_bytes + out_bytes) /
+                   HBM_BYTES_PER_S * 1e3,
+                   'k2_bound_ms': packed_bytes / PCIE_BYTES_PER_S * 1e3}
     return seen, chunk_stats
 
 
-def _device_busy_ms(fn, device, kernel: str = ''):
-    """Device time of one call from torch.profiler: the sum of every
-    device kernel's own time, or of those whose name holds ``kernel``
-    (None off the card or when the profiler sees no device activity)."""
+def _clone(a):
+    import torch
+    if isinstance(a, torch.Tensor):
+        return a.clone()
+    if isinstance(a, dict):
+        return {k: _clone(v) for k, v in a.items()}
+    return a
+
+
+def capture_kernel_inputs(fn):
+    """Call ``fn`` with every kernel wrapper spied on.  Returns what
+    ``fn`` returned and, per wrapper, copies of the arguments of each
+    call it got (the tensors stay on their device).  The spies call the
+    real wrappers, so each call still launches and counts."""
+    from kyverno_tpu_torch.ops import kernels
+    seen = {'fdet_select': [], 'wildcard_match': [], 'k3_mutate': []}
+    real = {name: getattr(kernels, name) for name in seen}
+
+    def spy(name):
+        def call(*args):
+            seen[name].append(tuple(_clone(a) for a in args))
+            return real[name](*args)
+        return call
+
+    for name in seen:
+        setattr(kernels, name, spy(name))
+    try:
+        out = fn()
+    finally:
+        for name, wrapper in real.items():
+            setattr(kernels, name, wrapper)
+    return out, seen
+
+
+def _device_busy_ms(fn, device, kernel: str = '', reps: int = 1):
+    """Device time from torch.profiler over ``reps`` calls of ``fn``,
+    counting device-side kernel events only (a CPU op's own device time
+    repeats its kernels').  With ``kernel``, the mean time of one launch
+    of the kernels whose name holds it; without, the summed time of all
+    kernels per call.  None off the card or when the profiler sees no
+    such kernel."""
     if device.type != 'cuda':
         return None
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            fn()
+            for _ in range(reps):
+                fn()
             torch.cuda.synchronize()
     except Exception as e:  # noqa: BLE001 - an extra reading, not a check
         print(f'chip_smoke: profiler unavailable: {e}', file=sys.stderr)
         return None
-    total_us = 0.0
+    total_us, launches = 0.0, 0
     for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA or \
+                getattr(evt, 'is_user_annotation', False):
+            continue
         if kernel in evt.key:
-            total_us += getattr(evt, 'self_device_time_total', 0.0) or 0.0
-    return total_us / 1e3 if total_us > 0 else None
+            total_us += evt.self_device_time_total
+            launches += evt.count
+    if total_us <= 0:
+        return None
+    return total_us / 1e3 / (launches if kernel else reps)
 
 
 def _random_k1h(rel, seed):
@@ -223,95 +298,118 @@ def _random_k1c(shape, w, seed):
             torch.from_numpy(tag.reshape(shape)))
 
 
-def kernel_phase(seen, device, seed):
-    """Hold each kernel against its plain version on the card; returns
-    the per-kernel records (launch counts are filled in later)."""
+def _k1h_bound(rel, k: int):
+    """(ms, 'bytes') of K1h: ``rel`` read once, the fdet of each taken
+    column (and of the fill column of a short row), the output."""
     import torch
-    from kyverno_tpu_torch.ops import kernels
-    if not seen['fdet_select'] or not seen['wildcard_match']:
-        raise AssertionError('the first chunk reached '
-                             f'{[k for k, v in seen.items() if v]} only')
-    records = []
-
-    # K1h ------------------------------------------------------------
-    rel, fdet_u, k = seen['fdet_select'][0]
-    cases = [(rel, fdet_u)] + [
-        (r.to(device), f.to(device)) for r, f in _random_k1h(rel, seed)]
-    err = 0
-    for r_, f_ in cases:
-        got = kernels.fdet_select(r_, f_, k)
-        want = kernels.fdet_select_plain(r_, f_, k)
-        err = max(err, _max_abs_err(got, want))
-    if err:
-        raise AssertionError(f'K1h differs from its plain version: {err}')
     r_n, c_n = rel.shape
     counts = rel.sum(dim=1)
     taken = torch.clamp(counts, max=k)
     fill = (counts < k).to(torch.int64)
-    k1h_bytes = r_n * c_n + int((taken + fill).sum()) * 4 + r_n * 2 * k * 4
-    records.append({
-        'name': 'k1h_fdet_select', 'route': 'cuda',
-        'source': 'kyverno_tpu_torch/csrc/k1h_fdet_select.cu',
-        'replaces': 'kyverno_tpu/ops/eval.py:1797',
-        'launches': 0, 'max_abs_err': err,
+    nbytes = r_n * c_n + int((taken + fill).sum()) * 4 + r_n * 2 * k * 4
+    return nbytes / HBM_BYTES_PER_S * 1e3, 'bytes'
+
+
+def _k1c_bound(str_len, w: int, pattern: bytes):
+    """(ms, bound_by) of K1c: the windows, lengths and tags read once,
+    two bools written; one compare per literal pattern byte and window
+    byte plus one step per pattern byte."""
+    n = str_len.numel()
+    literal = sum(1 for b in pattern if b not in b'*?')
+    t_bytes = (n * w + n * 4 + n + 2 * n) / HBM_BYTES_PER_S
+    t_ops = n * (literal * w + len(pattern)) / CUDA_CORE_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, \
+        'bytes' if t_bytes >= t_ops else 'operations'
+
+
+def measure_k1h(calls, device, extra=()):
+    """K1h on each captured call, and on ``extra`` (rel, fdet_u) cases
+    at the first call's k, against its plain version; the time, bound
+    and library time are those of the first call."""
+    from kyverno_tpu_torch.ops import kernels
+    if not calls:
+        raise AssertionError('K1h was never called')
+    rel, fdet_u, k = calls[0]
+    cases = list(calls) + [(r_, f_, k) for r_, f_ in extra]
+    err = max(_max_abs_err(kernels.fdet_select(*c),
+                           kernels.fdet_select_plain(*c)) for c in cases)
+    bound_ms, bound_by = _k1h_bound(rel, k)
+    return {
+        'max_abs_err': err,
         'ms': _ms(lambda: kernels.fdet_select(rel, fdet_u, k), device),
         'plain_ms': _ms(lambda: kernels.fdet_select_plain(rel, fdet_u, k),
                         device),
-        'bound_ms': k1h_bytes / HBM_BYTES_PER_S * 1e3,
-        'bound_by': 'bytes',
+        'bound_ms': bound_ms, 'bound_by': bound_by,
         'library_ms': _ms(lambda: kernels.fdet_select_library(
             rel, fdet_u, k), device),
         'kernel_device_ms': _device_busy_ms(
             lambda: kernels.fdet_select(rel, fdet_u, k), device,
-            'fdet_select_kernel'),
-        'shape': {'rows': r_n, 'cols': c_n, 'k': k,
-                  'relevant_cells': int(counts.sum())},
-        'cases': len(cases)})
+            'fdet_select_kernel', reps=20),
+        'shape': {'rows': rel.shape[0], 'cols': rel.shape[1], 'k': k,
+                  'relevant_cells': int(rel.sum())},
+        'calls': len(calls), 'cases': len(cases)}
 
-    # K1c ------------------------------------------------------------
-    head, str_len, tag, pattern = seen['wildcard_match'][0]
+
+def measure_k1c(calls, device, extra=(), patterns=()):
+    """K1c on each captured call, on every ``patterns`` over each call's
+    windows and on ``extra`` (head, str_len, tag) cases, against its
+    plain version; the time and bound are those of the first call."""
+    from kyverno_tpu_torch.ops import kernels
+    if not calls:
+        raise AssertionError('K1c was never called')
+    head, str_len, tag, pattern = calls[0]
+    cases = list(calls)
+    for args in [c[:3] for c in calls] + list(extra):
+        cases += [tuple(args) + (p,) for p in patterns]
+    err = max(_max_abs_err(kernels.wildcard_match(*c),
+                           kernels.wildcard_plain(*c)) for c in cases)
     w = head.shape[-1]
-    lead = tuple(str_len.shape)
-    rnd = [tuple(a.to(device) for a in _random_k1c(lead, w, seed + i))
-           for i in range(2)]
-    patterns = [pattern, b'*', b'?*', b'a?b*', b'*latest', b'?\xc3*',
-                b'*:*:*', b'']
-    err = 0
-    n_cases = 0
-    for args in [(head, str_len, tag)] + rnd:
-        for pat in patterns:
-            got = kernels.wildcard_match(*args, pat)
-            want = kernels.wildcard_plain(*args, pat)
-            err = max(err, _max_abs_err(got, want))
-            n_cases += 1
-    if err:
-        raise AssertionError(f'K1c differs from its plain version: {err}')
-    n = str_len.numel()
-    literal = sum(1 for b in pattern if b not in b'*?')
-    k1c_bytes = n * w + n * 4 + n + 2 * n
-    k1c_ops = n * (literal * w + len(pattern))
-    bound_s = max(k1c_bytes / HBM_BYTES_PER_S,
-                  k1c_ops / CUDA_CORE_OPS_PER_S)
-    records.append({
-        'name': 'k1c_wildcard', 'route': 'cuda',
-        'source': 'kyverno_tpu_torch/csrc/k1c_wildcard.cu',
-        'replaces': 'kyverno_tpu/ops/eval.py:275',
-        'launches': 0, 'max_abs_err': err,
+    bound_ms, bound_by = _k1c_bound(str_len, w, pattern)
+    return {
+        'max_abs_err': err,
         'ms': _ms(lambda: kernels.wildcard_match(head, str_len, tag,
                                                  pattern), device),
         'plain_ms': _ms(lambda: kernels.wildcard_plain(head, str_len, tag,
                                                        pattern), device),
-        'bound_ms': bound_s * 1e3,
-        'bound_by': ('bytes' if k1c_bytes / HBM_BYTES_PER_S >=
-                     k1c_ops / CUDA_CORE_OPS_PER_S else 'operations'),
-        'library_ms': None,
+        'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None,
         'kernel_device_ms': _device_busy_ms(
             lambda: kernels.wildcard_match(head, str_len, tag, pattern),
-            device, 'wildcard_kernel'),
-        'shape': {'values': n, 'lead': list(lead), 'window': w,
-                  'pattern': pattern.decode('utf-8', 'replace')},
-        'cases': n_cases})
-    return records
+            device, 'wildcard_kernel', reps=20),
+        'shape': {'values': str_len.numel(), 'lead': list(str_len.shape),
+                  'window': w, 'pattern': pattern.decode('utf-8',
+                                                         'replace')},
+        'calls': len(calls), 'cases': len(cases)}
+
+
+def kernel_phase(seen, device, seed):
+    """Hold K1h and K1c against their plain versions on the card at the
+    scan's first chunk, plus seeded random cases of that shape; returns
+    the per-kernel records (launch counts are filled in later)."""
+    rel = seen['fdet_select'][0][0] if seen['fdet_select'] else None
+    k1h = measure_k1h(seen['fdet_select'], device, extra=[
+        (r.to(device), f.to(device)) for r, f in _random_k1h(rel, seed)]
+        if rel is not None else ())
+    k1c_calls = seen['wildcard_match']
+    extra = []
+    if k1c_calls:
+        head, str_len = k1c_calls[0][0], k1c_calls[0][1]
+        extra = [tuple(a.to(device) for a in _random_k1c(
+            tuple(str_len.shape), head.shape[-1], seed + i))
+            for i in range(2)]
+    real_pattern = [k1c_calls[0][3]] if k1c_calls else []
+    k1c = measure_k1c(k1c_calls, device, extra=extra, patterns=real_pattern + [
+        b'*', b'?*', b'a?b*', b'*latest', b'?\xc3*', b'*:*:*', b''])
+    for name, rec in (('K1h', k1h), ('K1c', k1c)):
+        if rec['max_abs_err']:
+            raise AssertionError(f'{name} differs from its plain version: '
+                                 f'{rec["max_abs_err"]}')
+    return [
+        dict(k1h, name='k1h_fdet_select', route='cuda',
+             source='kyverno_tpu_torch/csrc/k1h_fdet_select.cu',
+             replaces='kyverno_tpu/ops/eval.py:1797', launches=0),
+        dict(k1c, name='k1c_wildcard', route='cuda',
+             source='kyverno_tpu_torch/csrc/k1c_wildcard.cu',
+             replaces='kyverno_tpu/ops/eval.py:275', launches=0)]
 
 
 # ---------------------------------------------------------------------------
@@ -346,9 +444,9 @@ def slice_phase(scanner, policies, pods):
     if set(keep) != want_rows:
         raise AssertionError(f'scan yielded {len(keep)} of the '
                              f'{len(want_rows)} rows to check')
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k in SCAN_KERNELS if launches[k] <= 0]
     if missing:
-        raise AssertionError(f'kernels never launched on the main path: '
+        raise AssertionError(f'kernels never launched on the scan: '
                              f'{missing}')
     engine = Engine()
     t1 = time.perf_counter()
@@ -375,6 +473,480 @@ def slice_phase(scanner, policies, pods):
 
 
 # ---------------------------------------------------------------------------
+# phases 4 and 5: the mutate kernel (K3) and the mutate chunk
+
+
+class MutateCounter:
+    """Counts what one live ``MutateScanner`` serves: rows dispatched
+    through ``scan`` and, from the kernel's own output, the live rows
+    whose status has a FALLBACK (the host engine finishes them).  It
+    wraps the instance's ``scan`` and kernel; nothing is launched for
+    the count."""
+
+    def __init__(self, scanner):
+        from kyverno_tpu_torch.mutate.kernel import MUT_FALLBACK
+        self.rows = 0
+        self.dispatches = 0
+        self.fallback_rows = 0
+        scan, kernel = scanner.scan, scanner._kernel
+
+        def counting_scan(resources, *args, **kwargs):
+            self.dispatches += 1
+            self.rows += len(resources)
+            return scan(resources, *args, **kwargs)
+
+        def counting_kernel(lanes):
+            out = kernel(lanes)
+            live = lanes['valid']
+            self.fallback_rows += int(
+                (out[0][live] == MUT_FALLBACK).any(axis=1).sum())
+            return out
+
+        scanner.scan = counting_scan
+        scanner._kernel = counting_kernel
+
+    def reset(self) -> None:
+        self.rows = self.dispatches = self.fallback_rows = 0
+
+    def stats(self) -> dict:
+        return {'rows': self.rows, 'dispatches': self.dispatches,
+                'fallback_rows': self.fallback_rows,
+                'device_decided_rows': self.rows - self.fallback_rows}
+
+
+def _random_k3(rows: int, seed: int, device, n_rules: int = 8,
+               per_rule: int = 32, w: int = 256):
+    """Seeded K3 inputs: ``n_rules`` rules of ``per_rule`` sites (bit 31
+    set by the 32nd), a ``w``-byte window, numeric constants and lane
+    values at the edges of the milli window, byte noise in the string
+    windows, every tag and intermediate state, 10 % padding rows.  The
+    fault rates leave about half the rules free of FALLBACK, so SKIP,
+    PASS and FALLBACK all occur."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    s = n_rules * per_rule
+    imax = np.iinfo(np.int64).max
+    edges = np.array([0, 1000, -1000, imax, -imax - 1, 250], np.int64)
+    is_num = rng.random(s) < 0.4
+    t_milli = np.where(is_num, rng.choice(edges, s), 0).astype(np.int64)
+    t_len = np.where(is_num, 0, rng.choice(
+        np.array([0, 1, w - 1, w, w + 9]), s)).astype(np.int32)
+    t_bytes = rng.integers(1, 256, (s, w)).astype(np.uint8)
+    t_bytes[np.arange(w)[None, :] >= np.minimum(t_len, w)[:, None]] = 0
+    t_bytes[is_num] = 0
+    sites = {'t_is_num': is_num, 't_milli': t_milli, 't_len': t_len,
+             't_bytes': t_bytes, 'add_only': rng.random(s) < 0.3,
+             'replace': rng.random(s) < 0.03,
+             'rule_start': (np.arange(n_rules + 1) * per_rule
+                            ).astype(np.int32)}
+    tag = rng.choice(np.array([0, 1, 2, 3, 4, 5, 6, 7, 5, 3], np.int8),
+                     (rows, s))
+    istate = rng.choice(np.array([0] * 97 + [1, 1, 2], np.int8), (rows, s))
+    milli = np.where(rng.random((rows, s)) < 0.6, t_milli[None, :],
+                     rng.choice(edges, (rows, s))).astype(np.int64)
+    slen = np.where(rng.random((rows, s)) < 0.7, t_len[None, :],
+                    t_len[None, :] + rng.integers(-1, 2, (rows, s))
+                    ).astype(np.int32)
+    sbytes = np.broadcast_to(t_bytes, (rows, s, w)).copy()
+    r_i, s_i = np.nonzero(rng.random((rows, s)) < 0.2)
+    pos = rng.integers(0, w, len(r_i))
+    sbytes[r_i, s_i, pos] ^= rng.integers(1, 256, len(r_i)).astype(np.uint8)
+    lanes = {'tag': tag, 'istate': istate, 'milli': milli,
+             'milli_ok': rng.random((rows, s)) < 0.97, 'slen': slen,
+             'sbytes': sbytes,
+             'valid': np.arange(rows) < rows - rows // 10}
+    return ({k: torch.from_numpy(v).to(device) for k, v in lanes.items()},
+            {k: torch.from_numpy(v).to(device) for k, v in sites.items()})
+
+
+def _k3_bytes(lanes, sites) -> dict:
+    """K3's bytes.  ``full_pass``: every lane read once, R*S*(15 + w) +
+    R, plus R*NR*10 written (status i8, edits i64, reason i8).
+    ``needed``: what this run's data needs — tag and istate of every
+    cell, milli and milli_ok of present numeric cells under a numeric
+    site, slen of present strings under a string site and the w-byte
+    window of those whose length matches, ``valid``, and the outputs."""
+    from kyverno_tpu_torch.compiler.ir import (TAG_BOOL, TAG_FLOAT, TAG_INT,
+                                               TAG_MISSING, TAG_STRING)
+    tag, istate = lanes['tag'], lanes['istate']
+    r, s = tag.shape
+    w = lanes['sbytes'].shape[2]
+    nr = sites['rule_start'].numel() - 1
+    out = r * nr * 10
+    present = (tag != TAG_MISSING) & (istate != 2)
+    is_num = sites['t_is_num']
+    num_tag = (tag == TAG_BOOL) | (tag == TAG_INT) | (tag == TAG_FLOAT)
+    strings = present & ~is_num & (tag == TAG_STRING)
+    windows = strings & (lanes['slen'] == sites['t_len'])
+    needed = (r * s * 2 + int((present & is_num & num_tag).sum()) * 9 +
+              int(strings.sum()) * 4 + int(windows.sum()) * w + r + out)
+    return {'full_pass': r * s * (15 + w) + r + out, 'needed': needed}
+
+
+def measure_k3(lanes, sites, device) -> dict:
+    """K3 on one call's lanes and site tables against its plain
+    version: the error, the times, the bound of what the data needs and
+    that of a full pass."""
+    import torch
+    from kyverno_tpu_torch.ops import kernels
+    got = kernels.k3_mutate(lanes, sites)
+    err = _max_abs_err(got, kernels.k3_mutate_plain(lanes, sites))
+    r, s = lanes['tag'].shape
+    nbytes = _k3_bytes(lanes, sites)
+    return {
+        'shape': {'rows': r, 'sites': s,
+                  'rules': sites['rule_start'].numel() - 1,
+                  'window': lanes['sbytes'].shape[2]},
+        'max_abs_err': err,
+        'status_counts': torch.bincount(
+            got[0].flatten().long(), minlength=3).tolist(),
+        'bit31_rows': int(((got[1] >> 31) & 1).any(dim=1).sum()),
+        'ms': _ms(lambda: kernels.k3_mutate(lanes, sites), device),
+        'kernel_device_ms': _device_busy_ms(
+            lambda: kernels.k3_mutate(lanes, sites), device,
+            'mutate_kernel', reps=20),
+        'plain_ms': _ms(lambda: kernels.k3_mutate_plain(lanes, sites),
+                        device),
+        'bytes': nbytes,
+        'bound_ms': nbytes['needed'] / HBM_BYTES_PER_S * 1e3,
+        'full_pass_bound_ms': nbytes['full_pass'] / HBM_BYTES_PER_S * 1e3,
+        'bound_by': 'bytes', 'library_ms': None}
+
+
+def k3_phase(scanner, pods, device, seed):
+    """K3 against its plain version on the card: the lanes of one full
+    chunk of the mutate pack, a seeded random case and no sites."""
+    import torch
+    from kyverno_tpu_torch.compiler.shapes import canonical_capacity
+    from kyverno_tpu_torch.mutate.encode import encode_mutate_batch
+    kern = scanner._kernel
+    real = encode_mutate_batch(pods, scanner.program,
+                               padded_n=canonical_capacity(len(pods)),
+                               width=scanner._width)
+    r0 = len(real['valid'])
+    empty_lanes = {k: v[:, :0] if v.ndim > 1 else v
+                   for k, v in real.items()}
+    cases = {
+        'mutate_chunk': (kern.stage(real), kern.site_tensors()),
+        'random_8x32_w256': _random_k3(r0, seed, device),
+        'no_sites': (kern.stage(empty_lanes), {
+            't_is_num': torch.zeros(0, dtype=torch.bool, device=device),
+            't_milli': torch.zeros(0, dtype=torch.int64, device=device),
+            't_len': torch.zeros(0, dtype=torch.int32, device=device),
+            't_bytes': torch.zeros((0, kern.width), dtype=torch.uint8,
+                                   device=device),
+            'add_only': torch.zeros(0, dtype=torch.bool, device=device),
+            'replace': torch.zeros(0, dtype=torch.bool, device=device),
+            'rule_start': torch.zeros(kern.n_rules + 1, dtype=torch.int32,
+                                      device=device)}),
+    }
+    out = {}
+    for name, (lanes, sites) in cases.items():
+        out[name] = measure_k3(lanes, sites, device)
+        if out[name]['max_abs_err']:
+            raise AssertionError(f'K3 differs from its plain version on '
+                                 f'{name}: {out[name]["max_abs_err"]}')
+    main = out['mutate_chunk']
+    record = {
+        'name': 'k3_mutate', 'route': 'cuda',
+        'source': 'kyverno_tpu_torch/csrc/k3_mutate.cu',
+        'replaces': 'kyverno_tpu/mutate/kernel.py:94',
+        'launches': 0, 'max_abs_err': max(c['max_abs_err']
+                                          for c in out.values()),
+        'ms': main['ms'], 'plain_ms': main['plain_ms'],
+        'bound_ms': main['bound_ms'], 'bound_by': 'bytes',
+        'library_ms': None,
+        'kernel_device_ms': main['kernel_device_ms'],
+        'shape': main['shape'],
+        'cases': out}
+    return record
+
+
+def mutate_phase(scanner, policies, pods, seed):
+    """``MutateScanner.scan`` over one full chunk, then the sample held
+    against the host engine's cumulative chain."""
+    from kyverno_tpu_torch.engine.engine import Engine
+    from kyverno_tpu_torch.observability import coverage
+    from kyverno_tpu_torch.observability.metrics import MetricsRegistry
+    from kyverno_tpu_torch.ops import kernels
+    from kyverno_tpu_torch.smokepack import host_mutate_chain, mutate_row_key
+    counter = MutateCounter(scanner)
+    ledger = coverage.configure(MetricsRegistry())
+    docs = [json.loads(json.dumps(p)) for p in pods]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rows = scanner.scan(docs)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if launches['k3_mutate'] <= 0:
+        raise AssertionError('K3 never launched on the mutate chunk')
+    engine = Engine()
+    sample = random.Random(seed).sample(range(len(pods)), MUTATE_CHECK)
+    t1 = time.perf_counter()
+    mismatches = [i for i in sample if mutate_row_key(*rows[i]) !=
+                  mutate_row_key(*host_mutate_chain(policies, pods[i],
+                                                    engine))]
+    return dict(counter.stats(), pods=len(pods), wall_s=wall,
+                rows_per_s=len(pods) / wall, launches=launches,
+                device_cell_share=ledger.totals()['ratio'],
+                checked_rows=len(sample), mismatches=len(mismatches),
+                first_mismatches=mismatches[:10],
+                check_s=time.perf_counter() - t1)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: admission serving through the webhook
+
+
+def _review(i: int, route: str, obj: dict, rng) -> bytes:
+    """One AdmissionReview: 30 % UPDATEs with an ``oldObject``, 8
+    users, the Pod's own namespace (7 of them), and Kyverno's default
+    webhook timeout of 10 s."""
+    ns = obj['metadata']['namespace']
+    req = {'uid': f'{route.strip("/").replace("/", "-")}-{i}',
+           'operation': 'CREATE',
+           'kind': {'group': '', 'version': 'v1', 'kind': 'Pod'},
+           'resource': {'group': '', 'version': 'v1', 'resource': 'pods'},
+           'namespace': ns, 'name': obj['metadata']['name'], 'object': obj,
+           'userInfo': {'username': f'user-{i % 8}',
+                        'groups': ['system:authenticated']},
+           'timeoutSeconds': 10}
+    if rng.random() < 0.3:
+        old = json.loads(json.dumps(obj))
+        old['metadata'].setdefault('labels', {})['revision'] = 'previous'
+        req['operation'] = 'UPDATE'
+        req['oldObject'] = old
+    return json.dumps({'apiVersion': 'admission.k8s.io/v1',
+                       'kind': 'AdmissionReview', 'request': req}).encode()
+
+
+def _reviews(n: int, seed: int, start: int):
+    """``n`` (route, body) pairs, alternating /validate/fail (smoke-pack
+    Pods) and /mutate (mutate-pack Pods)."""
+    from kyverno_tpu_torch import smokepack
+    rng = random.Random(seed)
+    out = []
+    for j in range(n):
+        i = start + j
+        if j % 2 == 0:
+            route, obj = '/validate/fail', smokepack.make_config4_pod(rng, i)
+        else:
+            route, obj = '/mutate', smokepack.make_mutate_pod(rng, i)
+        out.append((route, _review(i, route, obj, rng)))
+    return out
+
+
+def _pctl(values, q: float) -> float:
+    data = sorted(values)
+    return data[min(len(data) - 1, int(q * len(data)))] if data else 0.0
+
+
+def _latency(lat) -> dict:
+    out = {}
+    for route in sorted({r for r, _ in lat}):
+        ms = [t * 1e3 for r, t in lat if r == route]
+        out[route] = {'n': len(ms), 'p50_ms': _pctl(ms, 0.50),
+                      'p99_ms': _pctl(ms, 0.99), 'max_ms': max(ms)}
+    return out
+
+
+def admission_kernels(server, oracle, reviews, device) -> dict:
+    """Each kernel at the admission path's own shapes.  One sync review
+    of each route is served with the kernel wrappers spied on; every
+    call's card tensors are held against the plain version, and the
+    first call of each kernel is timed and bounded.  These launches come
+    before the counted passes."""
+    seen = {'fdet_select': [], 'wildcard_match': [], 'k3_mutate': []}
+    for route in ('/validate/fail', '/mutate'):
+        body = next(b for r, b in reviews if r == route)
+        got, calls = capture_kernel_inputs(
+            lambda: server.handle(route, body))
+        if got != oracle.handle(route, body):
+            raise AssertionError(f'{route}: the captured review differs '
+                                 f'from the host loop')
+        for name, c in calls.items():
+            seen[name].extend(c)
+    if not seen['k3_mutate']:
+        raise AssertionError('K3 was never called on /mutate')
+    k3 = [measure_k3(lanes, sites, device)
+          for lanes, sites in seen['k3_mutate']]
+    out = {'k1h_fdet_select': measure_k1h(seen['fdet_select'], device),
+           'k1c_wildcard': measure_k1c(seen['wildcard_match'], device),
+           'k3_mutate': dict(k3[0], calls=len(k3), max_abs_err=max(
+               c['max_abs_err'] for c in k3))}
+    bad = {n: r['max_abs_err'] for n, r in out.items() if r['max_abs_err']}
+    if bad:
+        raise AssertionError(f'kernels differ from their plain versions at '
+                             f'the admission shapes: {bad}')
+    return out
+
+
+def admission_phase(seed: int) -> dict:
+    """The admission webhook on the card against a host-loop handler.
+
+    Fails on any response-byte mismatch, any ``host_fallback`` decision,
+    any breaker failure or a breaker left open, a sync-pass decision not
+    served on ``sync``, under 99 % of batch-pass validate decisions on
+    ``batch``, under 99 % of /mutate reviews dispatched through the
+    mutate scanner, and K1c, K1h or K3 never launched."""
+    import threading
+    from kyverno_tpu_torch import smokepack
+    from kyverno_tpu_torch.observability import provenance
+    from kyverno_tpu_torch.ops import kernels
+    from kyverno_tpu_torch.policycache import cache as pcache
+    from kyverno_tpu_torch.policycache.cache import Cache
+    from kyverno_tpu_torch.serving import breaker
+    from kyverno_tpu_torch.webhooks.handlers import ResourceHandlers
+    from kyverno_tpu_torch.webhooks.server import WebhookServer
+
+    cache = Cache()
+    cache.warm_up(smokepack.load_smoke_pack('Enforce') +
+                  smokepack.load_mutate_pack())
+    handlers = ResourceHandlers(cache, serving_mode='sync')  # the card
+    server = WebhookServer(handlers)
+    oracle = WebhookServer(ResourceHandlers(cache, device=False))
+    validate = cache.get_policies(pcache.VALIDATE_ENFORCE, 'Pod', 'ns-0')
+    mutate = cache.get_policies(pcache.MUTATE, 'Pod', 'ns-0')
+    t0 = time.perf_counter()
+    if not handlers.wait_device_ready(validate, timeout=READY_S):
+        raise AssertionError('the validate scanner did not come up')
+    msc = None
+    while msc is None and time.perf_counter() - t0 < READY_S:
+        msc = handlers._device_scanner(mutate, kind='mutate')
+        time.sleep(0.02)
+    if msc is None or not msc.ok:
+        raise AssertionError(f'the mutate scanner did not come up: {msc}')
+    ready_s = time.perf_counter() - t0
+    counter = MutateCounter(msc)
+    failures = []
+    record_failure = handlers._record_key_failure
+
+    def counting_failure(key, policies, reason):
+        failures.append(reason)
+        return record_failure(key, policies, reason)
+
+    handlers._record_key_failure = counting_failure
+    flight = os.path.join(HERE, 'chiprun_out', 'flight')
+    report = {'ready_s': ready_s, 'policies': {
+        'validate': len(validate), 'mutate': len(mutate)}}
+    launches = {}
+
+    def drive(reviews, clients):
+        """Serve ``reviews`` from ``clients`` threads; returns the
+        responses, per-request (route, seconds) and the wall time."""
+        got = [None] * len(reviews)
+        lat = [None] * len(reviews)
+        errors = []
+
+        def client(c):
+            try:
+                for j in range(c, len(reviews), clients):
+                    route, body = reviews[j]
+                    t = time.perf_counter()
+                    got[j] = server.handle(route, body)
+                    lat[j] = (route, time.perf_counter() - t)
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(clients)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        if errors:
+            raise AssertionError(f'webhook raised: {errors[:3]}')
+        return got, lat, time.perf_counter() - t
+
+    def run_pass(name, reviews, clients, check):
+        rec = provenance.configure(flight_n=len(reviews), dump_dir=flight)
+        counter.reset()
+        kernels.reset_launches()
+        got, lat, wall = drive(reviews, clients)
+        launches[name] = dict(kernels.LAUNCHES)
+        paths = rec.stats()['by_path']
+        provenance.disable()
+        t = time.perf_counter()
+        mismatches = [j for j in check
+                      if got[j] != oracle.handle(*reviews[j])]
+        n_val = sum(1 for r, _ in reviews if r == '/validate/fail')
+        n_mut = len(reviews) - n_val
+        return {'reviews': len(reviews), 'clients': clients,
+                'wall_s': wall, 'requests_per_s': len(reviews) / wall,
+                'latency': _latency(lat), 'validate_paths': paths,
+                'validate_decisions': n_val, 'mutate_reviews': n_mut,
+                'mutate': counter.stats(),
+                'mutate_dispatched_frac': counter.rows / max(n_mut, 1),
+                'launches': launches[name], 'checked': len(check),
+                'mismatches': len(mismatches),
+                'first_mismatches': mismatches[:10],
+                'check_s': time.perf_counter() - t}
+
+    try:
+        sync = _reviews(2 * SYNC_REVIEWS, seed, 0)
+        report['kernels_at_admission'] = admission_kernels(
+            server, oracle, sync, handlers.torch_device)
+        report['sync'] = run_pass('sync', sync, 1, range(len(sync)))
+        # the card's share of one sync request: its kernels' device time
+        # against the request's latency
+        for route in ('/validate/fail', '/mutate'):
+            body = next(b for r, b in sync if r == route)
+            busy = _device_busy_ms(lambda: server.handle(route, body),
+                                   handlers.torch_device, reps=5)
+            p50 = report['sync']['latency'][route]['p50_ms']
+            report['sync']['latency'][route].update(
+                device_busy_ms=busy,
+                device_idle_share=None if busy is None else 1 - busy / p50)
+        handlers.serving_mode = 'batch'
+        batch = _reviews(BATCH_REVIEWS, seed + 1, len(sync))
+        sample = sorted(random.Random(seed).sample(range(len(batch)),
+                                                   BATCH_ORACLE))
+        report['batch'] = run_pass('batch', batch, BATCH_CLIENTS, sample)
+        report['batcher'] = handlers._get_batcher().stats()
+    finally:
+        handlers.shutdown()
+    report['breaker_failures'] = failures
+    report['breakers'] = handlers._breakers.report()
+    open_keys = [k for k in (handlers._policy_key(validate),
+                             handlers._policy_key(mutate))
+                 if handlers._breakers.state(k) != breaker.CLOSED]
+    report['launches'] = {k: sum(launches[p][k] for p in launches)
+                          for k in kernels.LAUNCHES}
+
+    sp, bp = report['sync'], report['batch']
+    problems = []
+    for name, p in (('sync', sp), ('batch', bp)):
+        if p['mismatches']:
+            problems.append(f'{name}: {p["mismatches"]} responses differ '
+                            f'from the host loop: {p["first_mismatches"]}')
+        if p['validate_paths'].get('host_fallback'):
+            problems.append(f'{name}: host_fallback decisions '
+                            f'{p["validate_paths"]}')
+        if p['mutate_dispatched_frac'] < 0.99:
+            problems.append(f'{name}: only {p["mutate"]["rows"]} of '
+                            f'{p["mutate_reviews"]} /mutate reviews went '
+                            f'through the mutate scanner')
+    if sp['validate_paths'] != {'sync': sp['validate_decisions']}:
+        problems.append(f'sync pass paths {sp["validate_paths"]}')
+    on_batch = bp['validate_paths'].get('batch', 0)
+    if on_batch < 0.99 * bp['validate_decisions']:
+        problems.append(f'batch pass: {on_batch} of '
+                        f'{bp["validate_decisions"]} validate decisions '
+                        f'on batch: {bp["validate_paths"]}')
+    if failures or open_keys:
+        problems.append(f'breaker failures {failures[:3]}, open keys '
+                        f'{len(open_keys)}')
+    missing = [k for k, v in report['launches'].items() if v <= 0]
+    if missing:
+        problems.append(f'kernels never launched on the admission path: '
+                        f'{missing}')
+    report['problems'] = problems
+    return report
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
@@ -393,6 +965,7 @@ def main(argv=None) -> int:
     os.environ.setdefault('KTPU_ENCODE_PROCS', '4')
     from kyverno_tpu_torch import smokepack
     from kyverno_tpu_torch.compiler.scan import BatchScanner
+    from kyverno_tpu_torch.mutate import MutateScanner
     from kyverno_tpu_torch.ops import _build
     report = {'argv': sys.argv[1:], 'seed': args.seed}
 
@@ -437,17 +1010,54 @@ def main(argv=None) -> int:
 
         # 3. slice --------------------------------------------------------
         sl = slice_phase(scanner, policies, pods)
-        for r in records:
-            r['launches'] = sl['launches'][r['name']]
         print('slice ' + json.dumps(sl), flush=True)
         report['slice'] = sl
-        report['kernels'] = records
         if sl['mismatches']:
             raise AssertionError(f'{sl["mismatches"]} rows differ from the '
                                  f'host engine: {sl["first_mismatches"]}')
     finally:
         scanner._encoder_pool.close()
 
+    # 4. K3 -------------------------------------------------------------
+    mpolicies = smokepack.load_mutate_pack()
+    mrng = random.Random(args.seed + 7)
+    mpods = [smokepack.make_mutate_pod(mrng, i) for i in range(MUTATE_CHUNK)]
+    mscanner = MutateScanner(mpolicies)     # on the card by default
+    if not mscanner.ok:
+        raise AssertionError('the mutate pack did not lower')
+    k3 = k3_phase(mscanner, mpods, device, args.seed)
+    print('k3 ' + json.dumps({n: {k: c[k] for k in (
+        'shape', 'max_abs_err', 'ms', 'kernel_device_ms',
+        'plain_ms', 'bound_ms', 'status_counts', 'bit31_rows')}
+        for n, c in k3['cases'].items()}), flush=True)
+    records.append(k3)
+
+    # 5. mutate chunk ---------------------------------------------------
+    mu = mutate_phase(mscanner, mpolicies, mpods, args.seed)
+    print('mutate ' + json.dumps(mu), flush=True)
+    report['mutate'] = mu
+    if mu['mismatches']:
+        raise AssertionError(f'{mu["mismatches"]} mutate rows differ from '
+                             f'the host chain: {mu["first_mismatches"]}')
+
+    # 6. admission ------------------------------------------------------
+    adm = admission_phase(args.seed)
+    print('admission ' + json.dumps(adm), flush=True)
+    report['admission'] = adm
+    report['kernels'] = records
+    for r in records:
+        r['launches_by_path'] = {
+            'scan': sl['launches'].get(r['name'], 0),
+            'mutate_chunk': mu['launches'].get(r['name'], 0),
+            'admission': adm['launches'].get(r['name'], 0)}
+        # this slice's main path is the admission webhook: its launches,
+        # and the times and bound of the kernel at the shapes that path
+        # gave it; the chunk-shape numbers stay beside them
+        r['launches'] = adm['launches'].get(r['name'], 0)
+        at = adm['kernels_at_admission'][r['name']]
+        r['at_chunk'] = {k: r[k] for k in AT_SHAPE}
+        r.update({k: at[k] for k in AT_SHAPE})
+        r['max_abs_err'] = max(r['max_abs_err'], at['max_abs_err'])
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     report['device'] = {'kind': kind, 'count': count}
@@ -455,6 +1065,8 @@ def main(argv=None) -> int:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, 'chip_smoke.json'), 'w') as f:
         json.dump(report, f, indent=1)
+    if adm['problems']:
+        raise AssertionError('admission: ' + '; '.join(adm['problems']))
     print(json.dumps({'kernels': [{k: r[k] for k in (
         'name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
         'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')}

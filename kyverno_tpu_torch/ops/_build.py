@@ -38,6 +38,9 @@ KERNELS: Dict[str, tuple] = {
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_char_p,
         ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_void_p)),
+    'k3_mutate': ('k3_mutate', (ctypes.c_void_p,) * 17 + (
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)),
 }
 
 _lock = threading.Lock()

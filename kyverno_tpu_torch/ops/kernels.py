@@ -1,13 +1,16 @@
 """Wrappers of the hand-written CUDA kernels, and their plain versions.
 
-Two parts of the evaluator (``ops/eval.py``) run as kernels written for
-Hopper (``csrc/*.cu``, built by ``ops/_build.py``):
+Two parts of the evaluator (``ops/eval.py``) and the device mutate
+decision (``mutate/kernel.py``) run as kernels written for Hopper
+(``csrc/*.cu``, built by ``ops/_build.py``):
 
 * K1h ``fdet_select`` — the compact fail-detail select of
   ``evaluate_packed``: the first k relevant columns of each row and
   their fail details;
 * K1c ``wildcard_match`` — the glob DP of ``_View.wildcard_const`` and
-  its Kleene verdict.
+  its Kleene verdict;
+* K3 ``k3_mutate`` — per (resource, rule) of a lowered mutate set: the
+  edit bitmask, the status and the first-fault reason.
 
 Each wrapper checks device, dtype, shape and contiguity, launches on
 the current CUDA stream, raises if the launch fails, and counts its
@@ -24,10 +27,11 @@ from typing import Dict, Tuple
 import torch
 
 from ..compiler.ir import (TAG_ARRAY, TAG_BOOL, TAG_FLOAT, TAG_INT,
-                           TAG_STRING)
+                           TAG_MISSING, TAG_STRING)
 
 #: launches per kernel since the last ``reset_launches``
-LAUNCHES: Dict[str, int] = {'k1h_fdet_select': 0, 'k1c_wildcard': 0}
+LAUNCHES: Dict[str, int] = {'k1h_fdet_select': 0, 'k1c_wildcard': 0,
+                             'k3_mutate': 0}
 
 #: widest byte window and longest pattern the K1c kernel takes
 #: (``STR_LEN`` = 64 bounds every ``str_head`` lane)
@@ -206,3 +210,166 @@ def wildcard_plain(head: torch.Tensor, str_len: torch.Tensor,
     t = conv & decid & matched
     f = (~arrayish) & (~conv | (decid & ~matched))
     return t, f
+
+
+# ---------------------------------------------------------------------------
+# K3: the device mutate decision
+
+#: sites per rule: one warp lane each (mutate/plan.py MAX_SITES)
+K3_MAX_SITES = 32
+
+_NUM_TAGS = (TAG_BOOL, TAG_INT, TAG_FLOAT)
+_NUM_TAG_BITS = sum(1 << tg for tg in _NUM_TAGS)
+
+_K3_LANES = (('tag', torch.int8), ('istate', torch.int8),
+             ('milli', torch.int64), ('milli_ok', torch.bool),
+             ('slen', torch.int32))
+_K3_SITES = (('t_is_num', torch.bool), ('t_milli', torch.int64),
+             ('t_len', torch.int32), ('add_only', torch.bool),
+             ('replace', torch.bool))
+
+
+def _k3_check(lanes: Dict[str, torch.Tensor],
+              sites: Dict[str, torch.Tensor]) -> Tuple[int, int, int, int]:
+    """(R, S, NR, w) of a K3 call, after its dtype and shape checks."""
+    tag = lanes['tag']
+    _check(tag.dim() == 2, f'tag must be [R, S], got {tuple(tag.shape)}')
+    r, s = tag.shape
+    for name, dt in _K3_LANES:
+        t = lanes[name]
+        _check(t.dtype == dt and tuple(t.shape) == (r, s),
+               f'{name} must be {dt} [{r}, {s}], got {t.dtype} '
+               f'{tuple(t.shape)}')
+    sb = lanes['sbytes']
+    _check(sb.dtype == torch.uint8 and sb.dim() == 3 and
+           tuple(sb.shape[:2]) == (r, s),
+           f'sbytes must be uint8 [{r}, {s}, w], got {sb.dtype} '
+           f'{tuple(sb.shape)}')
+    w = sb.shape[2]
+    valid = lanes['valid']
+    _check(valid.dtype == torch.bool and tuple(valid.shape) == (r,),
+           f'valid must be bool [{r}]')
+    for name, dt in _K3_SITES:
+        t = sites[name]
+        _check(t.dtype == dt and tuple(t.shape) == (s,),
+               f'{name} must be {dt} [{s}], got {t.dtype} {tuple(t.shape)}')
+    tb = sites['t_bytes']
+    _check(tb.dtype == torch.uint8 and tuple(tb.shape) == (s, w),
+           f't_bytes must be uint8 [{s}, {w}], got {tb.dtype} '
+           f'{tuple(tb.shape)}')
+    rs = sites['rule_start']
+    _check(rs.dtype == torch.int32 and rs.dim() == 1 and rs.numel() >= 1,
+           'rule_start must be int32 [NR + 1]')
+    bounds = rs.tolist()
+    _check(bounds[0] == 0 and bounds[-1] == s and
+           all(0 <= b - a <= K3_MAX_SITES
+               for a, b in zip(bounds, bounds[1:])),
+           f'rule_start must rise from 0 to {s} by at most {K3_MAX_SITES} '
+           f'sites per rule')
+    return r, s, rs.numel() - 1, w
+
+
+def _k3_zeros(r: int, nr: int, dev) -> Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    return (torch.zeros((r, nr), dtype=torch.int8, device=dev),
+            torch.zeros((r, nr), dtype=torch.int64, device=dev),
+            torch.zeros((r, nr), dtype=torch.int8, device=dev))
+
+
+def k3_mutate(lanes: Dict[str, torch.Tensor], sites: Dict[str, torch.Tensor]
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(status i8, edits i64, reason i8)``, each ``[R, NR]``, of the
+    mutate lanes of ``mutate/encode.py`` (``tag``, ``istate``, ``milli``,
+    ``milli_ok``, ``slen`` ``[R, S]``, ``sbytes`` ``[R, S, w]``,
+    ``valid`` ``[R]``) against one program's site tables (``t_is_num``,
+    ``t_milli``, ``t_len``, ``add_only``, ``replace`` ``[S]``, ``t_bytes``
+    ``[S, w]``, and ``rule_start`` ``[NR + 1]``: rule r owns sites
+    ``rule_start[r]:rule_start[r + 1]``, at most 32 of them)."""
+    r, s, nr, w = _k3_check(lanes, sites)
+    ts = [lanes[k] for k in ('tag', 'istate', 'milli', 'milli_ok', 'slen',
+                             'sbytes', 'valid')] + \
+        [sites[k] for k in ('t_is_num', 't_milli', 't_len', 't_bytes',
+                            'add_only', 'replace', 'rule_start')]
+    if _on_cpu(*ts):
+        return k3_mutate_plain(lanes, sites)
+    _check(all(t.is_contiguous() for t in ts),
+           'k3_mutate takes contiguous tensors')
+    _check(w >= 8 and w % 8 == 0, f'window {w} is not a multiple of 8')
+    _check(lanes['sbytes'].data_ptr() % 8 == 0 and
+           sites['t_bytes'].data_ptr() % 8 == 0,
+           'sbytes and t_bytes must be 8-byte aligned')
+    dev = lanes['tag'].device
+    if r == 0 or s == 0 or nr == 0:
+        return _k3_zeros(r, nr, dev)
+    status = torch.empty((r, nr), dtype=torch.int8, device=dev)
+    edits = torch.empty((r, nr), dtype=torch.int64, device=dev)
+    reason = torch.empty((r, nr), dtype=torch.int8, device=dev)
+    from . import _build
+    lib = _build.load('k3_mutate')
+    with torch.cuda.device(dev):
+        rc = lib.k3_mutate(*[t.data_ptr() for t in ts], status.data_ptr(),
+                           edits.data_ptr(), reason.data_ptr(), r, s, nr, w,
+                           _NUM_TAG_BITS, TAG_MISSING, TAG_STRING,
+                           _stream(ts[0]))
+    if rc != 0:
+        raise RuntimeError(f'k3_mutate launch failed: CUDA error {rc}')
+    LAUNCHES['k3_mutate'] += 1
+    return status, edits, reason
+
+
+def k3_mutate_plain(lanes: Dict[str, torch.Tensor],
+                    sites: Dict[str, torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain torch version (kyverno_tpu/mutate/kernel.py
+    ``MutateKernel._eval``).  The JAX code reduces sites to rules with
+    int64 matmuls against a site-to-rule one-hot; torch has no int64
+    matmul on CUDA, so the per-rule sums here are an ``index_add_`` over
+    the site axis (the bit weights are distinct powers of two, so the
+    sum of a rule's weighted edits is its bitmask)."""
+    from ..mutate.kernel import (MUT_FALLBACK, MUT_PASS, MUT_SKIP,
+                                 RC_NON_DICT, RC_NONE, RC_REPLACE_MISSING,
+                                 RC_UNDECIDABLE)
+    r, s, nr, _w = _k3_check(lanes, sites)
+    tag, istate = lanes['tag'], lanes['istate']
+    dev = tag.device
+    if s == 0:
+        return _k3_zeros(r, nr, dev)
+    is_num, add_only = sites['t_is_num'], sites['add_only']
+    missing = tag == TAG_MISSING
+    bad = istate == 2
+    present = ~missing & ~bad
+    num_tag = (tag == _NUM_TAGS[0]) | (tag == _NUM_TAGS[1]) | \
+        (tag == _NUM_TAGS[2])
+    eq_num = is_num & present & num_tag & lanes['milli_ok'] & \
+        (lanes['milli'] == sites['t_milli'])
+    undec = is_num & present & num_tag & ~lanes['milli_ok'] & ~add_only
+    eq_str = ~is_num & present & (tag == TAG_STRING) & \
+        (lanes['slen'] == sites['t_len']) & \
+        torch.all(lanes['sbytes'] == sites['t_bytes'], dim=-1)
+    edit = (missing & ~bad) | (~add_only & present & ~(eq_num | eq_str))
+    rep_bad = sites['replace'] & ((istate != 0) | missing)
+
+    rule_start = sites['rule_start'].long()
+    site_rule = torch.repeat_interleave(
+        torch.arange(nr, device=dev), rule_start[1:] - rule_start[:-1])
+    bit = torch.arange(s, device=dev) - rule_start[site_rule]
+
+    def per_rule(x: torch.Tensor) -> torch.Tensor:
+        out = torch.zeros((r, nr), dtype=torch.int64, device=dev)
+        return out.index_add_(1, site_rule, x)
+
+    edits = per_rule(torch.bitwise_left_shift(edit.long(), bit))
+    rep_any = per_rule(rep_bad.long()) > 0
+    bad_any = per_rule(bad.long()) > 0
+    undec_any = per_rule(undec.long()) > 0
+    status = torch.where(rep_any | bad_any | undec_any, MUT_FALLBACK,
+                         torch.where(edits != 0, MUT_PASS, MUT_SKIP))
+    reason = torch.where(
+        rep_any, RC_REPLACE_MISSING,
+        torch.where(bad_any, RC_NON_DICT,
+                    torch.where(undec_any, RC_UNDECIDABLE, RC_NONE)))
+    # capacity-padding rows are SKIP with no edits and no reason
+    vcol = lanes['valid'][:, None]
+    return (torch.where(vcol, status, MUT_SKIP).to(torch.int8),
+            torch.where(vcol, edits, 0),
+            torch.where(vcol, reason, RC_NONE).to(torch.int8))

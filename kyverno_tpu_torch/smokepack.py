@@ -12,6 +12,13 @@ port's main path on the card (``chip_smoke.py``) and its CPU tests.
 Twelve policies; on the evaluator they compile to 13 device programs
 and no host rules.  ``make_pod`` / ``make_config4_pod`` generate Pods
 with a realistic violation mix from a ``random.Random``.
+
+* ``MUTATE_PACK`` and ``make_mutate_pod``: the JAX package's mutate
+  pack and its Pod generator (``bench.py`` ``MUTATE_PACK`` /
+  ``make_mutate_pod``), copied here since the port cannot import
+  ``bench.py``.  Three policies that all lower to device edit sites; about
+  10 % of the generated Pods take the per-row FALLBACK path (a json6902
+  replace on a missing annotation).
 """
 
 from __future__ import annotations
@@ -265,10 +272,77 @@ spec:
 SMOKE_PACK = '\n---\n'.join([BEST_PRACTICE_PACK, JMESPATH_PACK, PSS_PACK])
 
 
-def load_smoke_pack() -> List:
-    """The twelve smoke-pack policies."""
+def load_smoke_pack(action: str = '') -> List:
+    """The twelve smoke-pack policies; ``action`` (``Enforce``/``Audit``)
+    sets every policy's ``validationFailureAction`` (default: Audit, as
+    the pack leaves it unset)."""
+    import yaml
+    from .api.policy import Policy, load_policies_from_yaml
+    if not action:
+        return load_policies_from_yaml(SMOKE_PACK)
+    docs = [d for d in yaml.safe_load_all(SMOKE_PACK) if d]
+    for d in docs:
+        d['spec']['validationFailureAction'] = action
+    return [Policy(d) for d in docs]
+
+
+# the JAX package's mutate pack (bench.py MUTATE_PACK), verbatim
+MUTATE_PACK = """
+apiVersion: kyverno.io/v1
+kind: ClusterPolicy
+metadata:
+  name: add-default-labels
+  annotations: {pod-policies.kyverno.io/autogen-controllers: none}
+spec:
+  rules:
+    - name: add-team
+      match: {any: [{resources: {kinds: [Pod]}}]}
+      mutate:
+        patchStrategicMerge:
+          metadata:
+            labels:
+              "+(team)": platform
+              "+(cost-center)": eng-42
+---
+apiVersion: kyverno.io/v1
+kind: ClusterPolicy
+metadata:
+  name: set-dns-policy
+  annotations: {pod-policies.kyverno.io/autogen-controllers: none}
+spec:
+  rules:
+    - name: dns
+      match: {any: [{resources: {kinds: [Pod]}}]}
+      mutate:
+        patchStrategicMerge:
+          spec:
+            dnsPolicy: ClusterFirst
+            "+(enableServiceLinks)": false
+---
+apiVersion: kyverno.io/v1
+kind: ClusterPolicy
+metadata:
+  name: stamp-annotations
+  annotations: {pod-policies.kyverno.io/autogen-controllers: none}
+spec:
+  rules:
+    - name: stamp
+      match: {any: [{resources: {kinds: [Pod]}}]}
+      mutate:
+        patchesJson6902: |-
+          - op: add
+            path: /metadata/annotations/managed-by
+            value: kyverno-tpu
+          - op: replace
+            path: /metadata/annotations/tier
+            value: gold
+"""
+
+
+def load_mutate_pack() -> List:
+    """The three mutate-pack policies."""
     from .api.policy import load_policies_from_yaml
-    return load_policies_from_yaml(SMOKE_PACK)
+    return load_policies_from_yaml(MUTATE_PACK)
 
 
 _IMAGES = ['nginx:1.25.3', 'nginx:latest', 'ghcr.io/org/app:v2.1',
@@ -345,6 +419,60 @@ def make_config4_pod(rng, i: int) -> dict:
         pod['spec']['containers'][0]['image'] = \
             'gcr.io/proj/svc@sha256:' + '0' * 64
     return pod
+
+
+def make_mutate_pod(rng, i: int) -> dict:
+    """Pods for the mutate pack (bench.py ``make_mutate_pod``): ~90%
+    carry the ``tier`` annotation the json6902 replace needs (the rest
+    FALLBACK per row, attributed ``replace_path_missing``), half already
+    carry a ``team`` label (the add-only anchor skips), and dnsPolicy
+    varies so the strategic merge sometimes edits, sometimes SKIPs."""
+    meta = {'name': f'pod-{i}', 'namespace': f'ns-{i % 7}'}
+    annotations = {'owner': f'team-{i % 5}'}
+    if rng.random() < 0.9:
+        annotations['tier'] = rng.choice(['bronze', 'silver', 'gold'])
+    meta['annotations'] = annotations
+    if rng.random() < 0.5:
+        meta['labels'] = {'team': rng.choice(['red', 'blue'])}
+    spec = {'containers': [{'name': 'c', 'image': 'nginx:1.25.3'}]}
+    if rng.random() < 0.5:
+        spec['dnsPolicy'] = 'Default'
+    return {'apiVersion': 'v1', 'kind': 'Pod', 'metadata': meta,
+            'spec': spec}
+
+
+def host_mutate_chain(policies, resource: dict, engine=None):
+    """``(steps, patched)`` of one resource from the host ``Engine``
+    alone: the admission handler's cumulative mutate loop (policy k + 1
+    sees policy k's output; the chain stops after the first unsuccessful
+    policy) — the oracle ``MutateScanner.scan`` rows are held against."""
+    import json
+    from .engine.api import PolicyContext
+    from .engine.engine import Engine
+    engine = engine or Engine()
+    pctx = PolicyContext(None, new_resource=json.loads(json.dumps(resource)))
+    steps = []
+    for policy in policies:
+        ctx = pctx.copy()
+        ctx.policy = policy
+        er = engine.mutate(ctx)
+        steps.append((policy, er))
+        if not er.is_successful():
+            break
+        pctx = pctx.copy()
+        pctx.new_resource = er.patched_resource or pctx.new_resource
+        pctx.json_context.add_resource(pctx.new_resource)
+    return steps, pctx.new_resource
+
+
+def mutate_row_key(steps, patched) -> str:
+    """Canonical JSON of one mutate row: per policy its name and rule
+    cells (name, status, message, patches), then the patched document."""
+    import json
+    cells = [[policy.name, [[r.name, str(r.status), r.message, r.patches]
+                            for r in er.policy_response.rules]]
+             for policy, er in steps]
+    return json.dumps([cells, patched], sort_keys=True, default=str)
 
 
 def host_report_results(policies, resource: dict, now: int, engine=None):

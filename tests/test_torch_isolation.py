@@ -18,7 +18,9 @@ PORT = os.path.join(ROOT, 'kyverno_tpu_torch')
 REF = os.path.join(ROOT, 'kyverno_tpu')
 
 #: modules of the port whose device seams differ from the JAX package's
-PORTED = {'__init__.py', 'ops/eval.py', 'compiler/scan.py'}
+PORTED = {'__init__.py', 'ops/eval.py', 'compiler/scan.py',
+          'mutate/kernel.py', 'mutate/scanner.py', 'partition/keys.py',
+          'verdictcache/keys.py', 'webhooks/handlers.py'}
 #: verbatim copies whose absolute self-import was renamed, by line
 REWRITTEN = {'engine/jmespath/__init__.py': {5}}
 
@@ -101,6 +103,48 @@ assert not [m for m in sys.modules if blocked(m)]
 print('ISOLATED-OK')
 '''
 
+_CHILD_WEBHOOK = _CHILD.split('from kyverno_tpu_torch import smokepack')[0] + r'''
+import json, time
+from kyverno_tpu_torch import smokepack
+from kyverno_tpu_torch.observability import provenance
+from kyverno_tpu_torch.policycache import cache as pcache
+from kyverno_tpu_torch.policycache.cache import Cache
+from kyverno_tpu_torch.webhooks.handlers import ResourceHandlers
+from kyverno_tpu_torch.webhooks.server import WebhookServer
+cache = Cache()
+cache.warm_up(smokepack.load_smoke_pack('Enforce') +
+              smokepack.load_mutate_pack())
+handlers = ResourceHandlers(cache, torch_device='cpu')
+host = WebhookServer(ResourceHandlers(cache, device=False))
+server = WebhookServer(handlers)
+assert handlers.wait_device_ready(
+    cache.get_policies(pcache.VALIDATE_ENFORCE, 'Pod', 'ns-1'), timeout=120)
+mutate = cache.get_policies(pcache.MUTATE, 'Pod', 'ns-1')
+deadline = time.monotonic() + 120
+while handlers._device_scanner(mutate, kind='mutate') is None:
+    assert time.monotonic() < deadline
+    time.sleep(0.02)
+rng = random.Random(1)
+reviews = []
+for route, pod in (('/validate/fail', smokepack.make_config4_pod(rng, 1)),
+                   ('/mutate', smokepack.make_mutate_pod(rng, 1))):
+    body = json.dumps({'apiVersion': 'admission.k8s.io/v1',
+                       'kind': 'AdmissionReview', 'request': {
+        'uid': route, 'operation': 'CREATE',
+        'kind': {'group': '', 'version': 'v1', 'kind': 'Pod'},
+        'namespace': 'ns-1', 'name': 'pod-1', 'object': pod,
+        'userInfo': {'username': 'alice', 'groups': []},
+        'timeoutSeconds': 10}}).encode()
+    reviews.append((route, body, host.handle(route, body)))
+rec = provenance.configure(flight_n=16, dump_dir=sys.argv[2])
+for route, body, want in reviews:
+    assert server.handle(route, body) == want, route
+paths = [r.path for r in rec.records()]
+assert paths == ['sync'], paths
+assert not [m for m in sys.modules if blocked(m)]
+print('ISOLATED-OK')
+'''
+
 
 def test_port_imports_and_scans_with_jax_blocked():
     env = dict(os.environ)
@@ -110,6 +154,37 @@ def test_port_imports_and_scans_with_jax_blocked():
                           cwd=ROOT, env=env)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert 'ISOLATED-OK' in proc.stdout
+
+
+def test_port_serves_admission_with_jax_blocked(tmp_path):
+    env = dict(os.environ)
+    env.pop('PYTHONPATH', None)
+    proc = subprocess.run([sys.executable, '-c', _CHILD_WEBHOOK, ROOT,
+                           str(tmp_path)],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=ROOT, env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert 'ISOLATED-OK' in proc.stdout
+
+
+def test_engine_rev_digests_the_ports_own_sources():
+    """Verdict keys of the port never coincide with the JAX package's:
+    ``engine_rev`` reads the port's own evaluator, kernels, compiler,
+    scan and report sources."""
+    from kyverno_tpu.verdictcache import keys as jax_keys
+    from kyverno_tpu_torch.observability import provenance
+    from kyverno_tpu_torch.verdictcache import keys
+    for rel in keys.ENGINE_SOURCES:
+        assert os.path.isfile(os.path.join(PORT, rel)), rel
+    # a kernel change is an engine change: every CUDA source and the
+    # wrappers are digested
+    cu = {f'csrc/{f}' for f in os.listdir(os.path.join(PORT, 'csrc'))
+          if f.endswith('.cu')}
+    assert cu and cu | {'ops/kernels.py'} <= set(keys.ENGINE_SOURCES)
+    rev = keys.engine_rev()
+    assert len(rev) == 16 and rev != jax_keys.engine_rev()
+    assert provenance._engine_rev() == rev
+    assert keys.generation_key('f') == f'f-{rev}'
 
 
 def test_resolve_device(monkeypatch):

@@ -1,5 +1,6 @@
-"""The two hand-written kernels' plain versions against the JAX code they
-replace, on numpy-seeded inputs and the edge cases each must keep:
+"""The evaluator's hand-written kernels' plain versions against the JAX
+code they replace, on numpy-seeded inputs and the edge cases each must
+keep:
 
 * K1h ``fdet_select`` — the compact fail-detail select of the JAX
   ``evaluate_packed`` (``keys = where(rel, col, C)``, per-row sort, first
@@ -7,11 +8,12 @@ replace, on numpy-seeded inputs and the edge cases each must keep:
 * K1c ``wildcard_match`` — ``_View.wildcard_const`` of the JAX
   evaluator (glob DP over the byte window, Kleene verdict).
 
-On the CPU each wrapper takes its plain version and counts no launch.
-The kernels themselves run only on a CUDA card: those tests skip here
-and run on the card with ``python -m pytest tests/test_torch_kernels.py``
-(``chip_smoke.py`` also holds both kernels against their plain versions
-at the main path's shapes).
+(K3's plain version is held against the JAX ``MutateKernel`` in
+``tests/test_torch_mutate.py``.)  On the CPU each wrapper takes its plain
+version and counts no launch.  The kernels themselves, K3's among them,
+run only on a CUDA card: those tests skip here and run on the card with
+``python -m pytest tests/test_torch_kernels.py`` (``chip_smoke.py`` also
+holds every kernel against its plain version at the main path's shapes).
 """
 
 import numpy as np
@@ -255,3 +257,32 @@ def test_k1c_cuda_kernel_matches_plain(cuda):
             torch.cuda.synchronize()
             assert torch.equal(got[0].cpu(), want[0]), (w, pattern)
             assert torch.equal(got[1].cpu(), want[1]), (w, pattern)
+
+
+@pytest.mark.cuda
+def test_k3_cuda_kernel_matches_plain(cuda):
+    from types import SimpleNamespace
+    from kyverno_tpu_torch.mutate.kernel import MutateKernel
+    from test_torch_mutate import random_lanes, random_program
+    counts = [32, 1, 32, 5, 32, 0, 17, 32]
+    for w in (8, 256):
+        prog = random_program(np.random.default_rng(w), 8, counts, w)
+        host = MutateKernel(prog, 'cpu')
+        card = MutateKernel(prog, cuda)
+        lanes = random_lanes(np.random.default_rng(w + 1), host, 1000)
+        want = kernels.k3_mutate_plain(host.stage(lanes),
+                                       host.site_tensors())
+        before = kernels.LAUNCHES['k3_mutate']
+        got = kernels.k3_mutate(card.stage(lanes), card.site_tensors())
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES['k3_mutate'] == before + 1
+        for g, wt in zip(got, want):
+            assert torch.equal(g.cpu(), wt), w
+    # no sites: zeros, and no launch
+    empty = MutateKernel(SimpleNamespace(programs=[
+        SimpleNamespace(sites=[])]), cuda)
+    lanes = random_lanes(np.random.default_rng(0), empty, 5)
+    before = kernels.LAUNCHES['k3_mutate']
+    got = kernels.k3_mutate(empty.stage(lanes), empty.site_tensors())
+    assert kernels.LAUNCHES['k3_mutate'] == before
+    assert all(not o.any() for o in got)
