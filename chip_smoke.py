@@ -18,16 +18,36 @@ CUDA card and checks it, in phases that each print one line:
    device-decided fraction, each kernel's launches during the scan
    (each must be > 0) and the encoder pool's state.  The first 2,000
    rows and every row of the last chunk are held against the port's
-   host ``Engine``; any mismatch fails the run.
-
-4. ``k3``: the mutate kernel (K3) against its plain version on the card,
+   host ``Engine``; any mismatch fails the run.  A sha256 digest over
+   every result row is kept for the mesh phase.
+4. ``mesh``, ``mesh_step``, ``mesh_2rank``: the multi-device scan
+   (``parallel/mesh.py``) on ``torch.distributed``.  (a) An NCCL group
+   of world size 1 (rendezvous through a file store; no network), and
+   ``BatchScanner(policies, mesh=...).scan_report_results`` over the same
+   Pods: every row's digest must equal the slice's, the first 2,000 rows
+   and the last chunk are held against the host ``Engine``, and the
+   fleet telemetry reports the shard wall and collective seconds.  (b)
+   ``distributed_scan_step`` over three steps of 16,384 Pods on that
+   group: each summary must equal a numpy histogram of its statuses, the
+   statuses must equal the single-device scanner's, and the histogram
+   kernel (K4h) is held against its plain version on the exact card
+   tensors a step gave it, on a seeded random case (131,072 rows, 256
+   programs) and on empty shapes (no launch).  (c) Two ranks on the one
+   card: two child processes of this script, each evaluating on
+   ``cuda:0`` with its collectives on host copies under gloo (NCCL
+   refuses two ranks on one GPU), depth cut to one step over 2 x 16,384
+   Pods and a scan of 3 chunks + 1 Pod.  Their summaries must agree with
+   each other and with (b), their report digests with (a); rank 0 alone
+   leads; K4h must launch in each.  A child that fails, outlives its
+   timeout or prints no result fails the run.
+5. ``k3``: the mutate kernel (K3) against its plain version on the card,
    on the lanes of one full chunk of the mutate pack, a seeded random
    case (8 rules of 32 sites, a 256-byte window, 10 % padding rows) and
    a program with no sites.  Outputs must be exactly equal.
-5. ``mutate``: ``MutateScanner.scan`` over one full chunk (16,384 Pods)
+6. ``mutate``: ``MutateScanner.scan`` over one full chunk (16,384 Pods)
    of the mutate pack: rows/s, the FALLBACK rows, K3's launches; 256
    sampled rows are held against the host engine's mutate chain.
-6. ``admission``: the admission webhook, ``WebhookServer.handle`` on
+7. ``admission``: the admission webhook, ``WebhookServer.handle`` on
    ``/validate/fail`` and ``/mutate``, over the smoke pack in Enforce plus
    the mutate pack, with the scanners on the card.  A sync pass (500 +
    500 sequential reviews) and a batch pass (the micro-batcher, 16
@@ -45,15 +65,19 @@ CUDA card and checks it, in phases that each print one line:
    dispatched and the breaker failures, and fails unless the device
    served (see ``admission_phase``).
 
-Then one JSON line of per-kernel numbers (launches on the admission
-path, with the error, times and bound at the admission shapes; the
-chunk-shape numbers are in the report), the nvidia-smi line, and as the
+Then the seconds of each phase, one JSON line of per-kernel numbers
+(launches on the path that runs each kernel: the admission path for K1h,
+K1c and K3, with the error, times and bound at the admission shapes, the
+chunk-shape numbers being in the report; the mesh path for K4h, at the
+step's shapes), the nvidia-smi line, and as the
 last line ``{"ok": true, "device": {...}}``.  A full report goes to
 ``chiprun_out/chip_smoke.json``.
 
 Run from the repository root:
 
     python3 chip_smoke.py [--pods N] [--seed S]
+
+(``--mesh-child RANK`` is the mode phase 4c starts its two ranks in.)
 
 Without a CUDA card, or outside the repository, it exits non-zero and
 prints no result.  It imports nothing of JAX or of the JAX package.
@@ -65,6 +89,7 @@ import argparse
 import json
 import os
 import random
+import signal
 import subprocess
 import sys
 import time
@@ -78,6 +103,16 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 CUDA_CORE_OPS_PER_S = 67e12    # H100 SXM non-tensor rate (data sheet)
 PCIE_BYTES_PER_S = 64e9        # PCIe Gen5 x16, one direction (data sheet)
 SCAN_KERNELS = ('k1h_fdet_select', 'k1c_wildcard')  # launched by the scan
+MESH_KERNELS = ('k1c_wildcard', 'k4_status_hist')   # by the mesh path
+ADMISSION_KERNELS = ('k1h_fdet_select', 'k1c_wildcard', 'k3_mutate')
+MESH_STEP_ROWS = 16384         # rows of each distributed_scan_step
+MESH_STEPS = 3                 # steps on the world-size-1 group
+MESH_CHILD_RANKS = 2                        # ranks of the two-rank mesh
+MESH_CHILD_STEP_ROWS = 2 * MESH_STEP_ROWS   # the two-rank step
+MESH_CHILD_PODS = 3 * 16384 + 1             # the two-rank scan
+K4_RANDOM = (131072, 256)      # rows, programs of K4h's random case
+INIT_TIMEOUT_S = 60            # every process group's rendezvous
+CHILD_TIMEOUT_S = 480          # each two-rank child, start to end
 MUTATE_CHUNK = 16384           # rows of the mutate-chunk phase
 MUTATE_CHECK = 256             # of them held against the host chain
 SYNC_REVIEWS = 500             # per route, sequential
@@ -207,13 +242,14 @@ def _clone(a):
     return a
 
 
-def capture_kernel_inputs(fn):
-    """Call ``fn`` with every kernel wrapper spied on.  Returns what
-    ``fn`` returned and, per wrapper, copies of the arguments of each
-    call it got (the tensors stay on their device).  The spies call the
-    real wrappers, so each call still launches and counts."""
+def capture_kernel_inputs(fn, names=('fdet_select', 'wildcard_match',
+                                       'k3_mutate')):
+    """Call ``fn`` with the kernel wrappers ``names`` spied on.  Returns
+    what ``fn`` returned and, per wrapper, copies of the arguments of
+    each call it got (the tensors stay on their device).  The spies call
+    the real wrappers, so each call still launches and counts."""
     from kyverno_tpu_torch.ops import kernels
-    seen = {'fdet_select': [], 'wildcard_match': [], 'k3_mutate': []}
+    seen = {name: [] for name in names}
     real = {name: getattr(kernels, name) for name in seen}
 
     def spy(name):
@@ -415,8 +451,24 @@ def kernel_phase(seen, device, seed):
 # ---------------------------------------------------------------------------
 # phase 3: the slice
 
-def slice_phase(scanner, policies, pods):
-    """The main path over every Pod, then the host-engine check."""
+def row_digests(rows) -> list:
+    """sha256 of each report row: its results and summary as canonical
+    JSON (the policies' names are in the results)."""
+    import hashlib
+    return [hashlib.sha256(json.dumps([r[0], r[1]], sort_keys=True)
+                           .encode()).digest() for r in rows]
+
+
+def digest_of(digests, n=None) -> str:
+    """One sha256 over the first ``n`` row digests (all by default)."""
+    import hashlib
+    return hashlib.sha256(b''.join(digests[:n])).hexdigest()
+
+
+def slice_phase(scanner, policies, pods, need=SCAN_KERNELS):
+    """The main path over every Pod, then the host-engine check; every
+    kernel of ``need`` must have launched.  Returns the record and the
+    row digests."""
     from kyverno_tpu_torch.engine.engine import Engine
     from kyverno_tpu_torch.observability import coverage
     from kyverno_tpu_torch.observability import device as devtel
@@ -426,28 +478,37 @@ def slice_phase(scanner, policies, pods):
     n = len(pods)
     chunk = scanner.CHUNK
     last_start = ((n - 1) // chunk) * chunk
-    keep = {}
+    rows = []
     decisions = 0
     coverage.configure(MetricsRegistry())
+    reg = devtel.configure(MetricsRegistry())
     cap = devtel.ScanCapture()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    with devtel.install_capture(cap):
-        for i, (results, summary, _pols) in enumerate(
-                scanner.scan_report_results(pods, now=NOW)):
-            decisions += len(results)
-            if i < CHECK_HEAD or i >= last_start:
-                keep[i] = (results, summary)
-    wall = time.perf_counter() - t0
+    try:
+        with devtel.install_capture(cap):
+            for results, summary, _pols in scanner.scan_report_results(
+                    pods, now=NOW):
+                decisions += len(results)
+                rows.append((results, summary))
+        wall = time.perf_counter() - t0
+    finally:
+        devtel.disable()
+    # the bytes the d2h stage recorded, and its chunk count
+    d2h_bytes = reg.counter_total(devtel.D2H_BYTES)
+    d2h_chunks = reg.histogram_count(devtel.SCAN_STAGE_DURATION, stage='d2h')
     launches = dict(kernels.LAUNCHES)
-    want_rows = set(range(min(n, CHECK_HEAD))) | set(range(last_start, n))
-    if set(keep) != want_rows:
-        raise AssertionError(f'scan yielded {len(keep)} of the '
-                             f'{len(want_rows)} rows to check')
-    missing = [k for k in SCAN_KERNELS if launches[k] <= 0]
+    if len(rows) != n:
+        raise AssertionError(f'scan yielded {len(rows)} of {n} rows')
+    keep = {i: rows[i] for i in sorted(set(range(min(n, CHECK_HEAD))) |
+                                       set(range(last_start, n)))}
+    missing = [k for k in need if launches[k] <= 0]
     if missing:
         raise AssertionError(f'kernels never launched on the scan: '
                              f'{missing}')
+    t1 = time.perf_counter()
+    digests = row_digests(rows)
+    digest_s = time.perf_counter() - t1
     engine = Engine()
     t1 = time.perf_counter()
     mismatches = [i for i, got in sorted(keep.items())
@@ -462,6 +523,8 @@ def slice_phase(scanner, policies, pods):
         'wall_s': wall, 'pods_per_s': n / wall,
         'decisions': decisions, 'decisions_per_s': decisions / wall,
         'stage_s': dict(sorted(cap.stages.items())),
+        'd2h_bytes': d2h_bytes, 'd2h_chunks': d2h_chunks,
+        'd2h_bytes_per_chunk': d2h_bytes / d2h_chunks,
         'device_decided_frac': cap.coverage_ratio,
         'launches': launches,
         'encoder_pool': {'procs': pool.procs,
@@ -469,7 +532,387 @@ def slice_phase(scanner, policies, pods):
                          'broken': pool._broken},
         'checked_rows': len(keep), 'mismatches': len(mismatches),
         'first_mismatches': mismatches[:10], 'check_s': check_s,
-    }
+        'row_digest': digest_of(digests), 'digest_s': digest_s,
+    }, digests
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the multi-device scan on torch.distributed
+
+
+def init_group(backend: str, store_path: str, rank: int, world: int) -> None:
+    """A process group through a file store (no network), bounded by
+    ``INIT_TIMEOUT_S``: a rendezvous that never completes fails."""
+    import datetime
+    import torch.distributed as dist
+    dist.init_process_group(
+        backend, store=dist.FileStore(store_path, world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=INIT_TIMEOUT_S))
+
+
+def _k4_bound(statuses, rowvalid, n_codes: int):
+    """(ms, bound_by) of K4h: the statuses and the row mask read once,
+    the int64 counts written once; one compare and one add per cell."""
+    r, p = statuses.shape
+    nbytes = r * p + (r if rowvalid is not None else 0) + p * n_codes * 8
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * r * p / CUDA_CORE_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, \
+        'bytes' if t_bytes >= t_ops else 'operations'
+
+
+def _random_k4(seed: int, device):
+    """K4h's random case: codes drawn from [-2, 8), 10 % rows invalid."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    r, p = K4_RANDOM
+    statuses = rng.integers(-2, 8, (r, p)).astype(np.int8)
+    rowvalid = (rng.random(r) >= 0.1).astype(np.uint8)
+    return (torch.from_numpy(statuses).to(device),
+            torch.from_numpy(rowvalid).to(device))
+
+
+def measure_k4(statuses, rowvalid, n_codes: int, device) -> dict:
+    """K4h on one call's tensors against its plain version: the error,
+    the call, device, plain and library times, and the bound."""
+    from kyverno_tpu_torch.ops import kernels
+    args = (statuses, rowvalid, n_codes)
+    err = _max_abs_err(kernels.status_histogram(*args),
+                       kernels.status_histogram_plain(*args))
+    bound_ms, bound_by = _k4_bound(statuses, rowvalid, n_codes)
+    return {
+        'shape': {'rows': statuses.shape[0], 'programs': statuses.shape[1],
+                  'codes': n_codes, 'masked_rows': 0 if rowvalid is None
+                  else int((rowvalid == 0).sum())},
+        'max_abs_err': err,
+        'ms': _ms(lambda: kernels.status_histogram(*args), device),
+        'kernel_device_ms': _device_busy_ms(
+            lambda: kernels.status_histogram(*args), device,
+            'status_hist_kernel', reps=20),
+        'plain_ms': _ms(lambda: kernels.status_histogram_plain(*args),
+                        device),
+        'library_ms': _ms(lambda: kernels.status_histogram_library(*args),
+                          device),
+        'bound_ms': bound_ms, 'bound_by': bound_by}
+
+
+def k4_phase(calls, device, seed) -> dict:
+    """K4h against its plain version on the card: every call a step
+    made (the first is timed), the random case, and P = 0 and R = 0,
+    which must not launch.  Returns the kernel's record."""
+    import torch
+    from kyverno_tpu_torch.compiler.ir import N_STATUS_CODES
+    from kyverno_tpu_torch.ops import kernels
+    if not calls:
+        raise AssertionError('K4h was never called on the mesh step')
+    first = measure_k4(*calls[0], device)
+    err = max(_max_abs_err(kernels.status_histogram(*c),
+                           kernels.status_histogram_plain(*c))
+              for c in calls[1:]) if len(calls) > 1 else 0
+    cases = {'step': dict(first, calls=len(calls),
+                          max_abs_err=max(err, first['max_abs_err'])),
+             'random': measure_k4(*_random_k4(seed, device),
+                                  N_STATUS_CODES, device)}
+    before = kernels.LAUNCHES['k4_status_hist']
+    empty = {}
+    for name, (r, p) in (('no_programs', (MESH_STEP_ROWS, 0)),
+                         ('no_rows', (0, 13))):
+        st = torch.zeros((r, p), dtype=torch.int8, device=device)
+        rv = torch.ones(r, dtype=torch.uint8, device=device)
+        got = kernels.status_histogram(st, rv, N_STATUS_CODES)
+        empty[name] = _max_abs_err(got, kernels.status_histogram_plain(
+            st, rv, N_STATUS_CODES))
+    if kernels.LAUNCHES['k4_status_hist'] != before:
+        raise AssertionError('K4h launched on an empty shape')
+    cases['empty'] = {'max_abs_err': max(empty.values()), 'cases': empty}
+    worst = max(c['max_abs_err'] for c in cases.values())
+    if worst:
+        raise AssertionError(f'K4h differs from its plain version: '
+                             f'{ {n: c["max_abs_err"] for n, c in cases.items()} }')
+    main = cases['step']
+    return dict({k: main[k] for k in AT_SHAPE}, name='k4_status_hist',
+                route='cuda', source='kyverno_tpu_torch/csrc/k4_status_hist.cu',
+                replaces='kyverno_tpu/parallel/mesh.py:59', launches=0,
+                max_abs_err=worst, cases=cases)
+
+
+def mesh_scan_phase(mesh, scanner, policies, pods, slice_digests) -> dict:
+    """(a) ``BatchScanner(mesh=...)`` over every Pod, held row by row
+    against the slice's digests and against the host engine, with the
+    fleet telemetry armed on a fresh registry."""
+    from kyverno_tpu_torch.compiler.scan import BatchScanner
+    from kyverno_tpu_torch.observability import fleet
+    from kyverno_tpu_torch.observability.metrics import MetricsRegistry
+    reg = MetricsRegistry()
+    fleet.configure(reg, profile_trigger=lambda: None)
+    msc = BatchScanner(policies, mesh=mesh)
+    # the slice's encode workers were forked before any CUDA context
+    # and encode the same compiled set; a pool forked now would not be
+    msc._encoder_pool = scanner._encoder_pool
+    try:
+        rec, digests = slice_phase(msc, policies, pods, need=('k1c_wildcard',))
+    finally:
+        fleet.disable()
+    rec['differing_rows'] = sum(a != b for a, b in zip(digests,
+                                                       slice_digests))
+    rec['digest_equal'] = digest_of(digests) == digest_of(slice_digests)
+    mkey = f'data{mesh.world_size}'
+    rec['fleet'] = {
+        'dispatches': reg.histogram_count(fleet.MESH_STEP_DURATION,
+                                          shard=str(mesh.rank)),
+        'shard_wall_s': reg.histogram_sum(fleet.MESH_STEP_DURATION,
+                                          shard=str(mesh.rank)),
+        'collective_s': reg.counter_total(fleet.MESH_COLLECTIVE_SECONDS),
+        'padding_rows': reg.counter_total(fleet.MESH_PADDING_ROWS),
+        'skew': reg.gauge_value(fleet.MESH_SHARD_SKEW, mesh=mkey)}
+    # cross-check of the recorded d2h bytes: every row reads back its
+    # program-space statuses, details (int8) and fail details (int32)
+    # in full, with no __match__ plane and no compaction
+    rec['d2h_bytes_formula'] = len(pods) * len(msc.cps.programs) * (1 + 1 + 4)
+    rec['d2h_formula_agrees'] = rec['d2h_bytes'] == rec['d2h_bytes_formula']
+    rec['backend'] = mesh.backend
+    rec['world_size'] = mesh.world_size
+    rec['devices'] = mesh.devices
+    if rec['mismatches'] or rec['differing_rows'] or not rec['digest_equal']:
+        raise AssertionError(
+            f'mesh scan: {rec["differing_rows"]} rows differ from the '
+            f'single-device scan, {rec["mismatches"]} from the host engine')
+    return rec, digests
+
+
+def mesh_step_phase(mesh, cps, scanner, pods):
+    """(b) ``distributed_scan_step`` over ``MESH_STEPS`` steps of
+    ``MESH_STEP_ROWS`` Pods with the K4h wrapper spied on; each summary
+    against a numpy histogram of its statuses and the statuses against
+    the single-device scanner's.  Returns the record, the steps'
+    (statuses, summary) and the K4h calls."""
+    import numpy as np
+    from kyverno_tpu_torch.compiler.ir import N_STATUS_CODES
+    from kyverno_tpu_torch.ops import kernels
+    from kyverno_tpu_torch.parallel.mesh import distributed_scan_step
+    parts = [pods[i * MESH_STEP_ROWS:(i + 1) * MESH_STEP_ROWS]
+             for i in range(MESH_STEPS)]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    steps, calls = capture_kernel_inputs(
+        lambda: [distributed_scan_step(cps, mesh, part) for part in parts],
+        names=('status_histogram',))
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    single, _d, _m = scanner.scan_statuses(pods[:MESH_STEPS *
+                                                MESH_STEP_ROWS])
+    bad = []
+    for i, (statuses, summary) in enumerate(steps):
+        hist = np.stack([(statuses == c).sum(axis=0, dtype=np.int64)
+                         for c in range(N_STATUS_CODES)], axis=1)
+        if summary.dtype != np.int64 or not np.array_equal(summary, hist):
+            bad.append(f'step {i}: summary is not the statuses\' histogram')
+        if not np.array_equal(
+                statuses, single[i * MESH_STEP_ROWS:(i + 1) * MESH_STEP_ROWS]):
+            bad.append(f'step {i}: statuses differ from the single-device '
+                       f'scan')
+    if bad:
+        raise AssertionError('; '.join(bad))
+    rec = {'steps': MESH_STEPS, 'rows_per_step': MESH_STEP_ROWS,
+           'wall_s': wall, 'pods_per_s': MESH_STEPS * MESH_STEP_ROWS / wall,
+           'launches': launches,
+           'summary_total': [int(sm.sum()) for _s, sm in steps]}
+    return rec, steps, calls['status_histogram']
+
+
+def spawn_mesh_children(seed: int, tmp: str) -> list:
+    """(c) ``MESH_CHILD_RANKS`` ranks of this script, all on the first
+    card, gloo between them, their output in files under ``tmp`` (a
+    pipe nobody reads could block a rank); returns each rank's result.
+    Fails on a child that fails, outlives ``CHILD_TIMEOUT_S`` or prints
+    no result; once one rank fails, the others are killed, since they
+    would wait for it in a collective."""
+    env = dict(os.environ)
+    env.setdefault('GLOO_SOCKET_IFNAME', 'lo')
+    env['KTPU_ENCODE_PROCS'] = '2'
+    cmd = [sys.executable, os.path.abspath(__file__), '--seed', str(seed),
+           '--pods', str(MESH_CHILD_PODS), '--step-rows',
+           str(MESH_CHILD_STEP_ROWS), '--store',
+           os.path.join(tmp, 'gloo-store'), '--device', 'cuda:0',
+           '--mesh-child']
+    logs = [(os.path.join(tmp, f'rank{r}.out'),
+             os.path.join(tmp, f'rank{r}.err'))
+            for r in range(MESH_CHILD_RANKS)]
+    procs = []
+    deadline = time.monotonic() + CHILD_TIMEOUT_S
+    try:
+        for rank, (out_path, err_path) in enumerate(logs):
+            with open(out_path, 'w') as out, open(err_path, 'w') as err:
+                procs.append(subprocess.Popen(cmd + [str(rank)], cwd=HERE,
+                                              env=env, stdout=out, stderr=err))
+        while any(p.poll() is None for p in procs) and \
+                not any(p.returncode for p in procs) and \
+                time.monotonic() < deadline:
+            time.sleep(0.2)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    outs, problems = [], []
+    for rank, (proc, (out_path, err_path)) in enumerate(zip(procs, logs)):
+        with open(out_path) as out, open(err_path) as err:
+            lines = [ln for ln in out.read().splitlines()
+                     if ln.startswith('mesh_child ')]
+            tail = err.read()[-3000:]
+        if proc.returncode == -signal.SIGKILL:
+            problems.append(f'rank {rank} killed: it outlived '
+                            f'{CHILD_TIMEOUT_S} s or a peer failed:\n{tail}')
+        elif proc.returncode != 0 or len(lines) != 1:
+            problems.append(f'rank {rank} exited {proc.returncode} with '
+                            f'{len(lines)} results:\n{tail}')
+        else:
+            outs.append(json.loads(lines[0][len('mesh_child '):]))
+    if problems:
+        raise AssertionError('two-rank mesh: ' + '; '.join(problems))
+    return outs
+
+
+def mesh_phase(policies, pods, scanner, slice_digests, device, seed) -> dict:
+    """Phase 4: (a) and (b) on an NCCL group of world size 1, then
+    (c) in two child processes on the first card.  Kernel
+    launches on the mesh path are those of (a) and (b), each counted
+    from 0; the comparison launches of K4h come after and do not
+    count."""
+    import hashlib
+    import tempfile
+    import numpy as np
+    import torch.distributed as dist
+    from kyverno_tpu_torch.parallel.mesh import make_mesh
+    with tempfile.TemporaryDirectory(prefix='ktpu-mesh-') as tmp:
+        t0 = time.perf_counter()
+        init_group('nccl', os.path.join(tmp, 'store'), 0, 1)
+        try:
+            mesh = make_mesh()
+            scan, digests = mesh_scan_phase(mesh, scanner, policies, pods,
+                                            slice_digests)
+            scan['seconds'] = time.perf_counter() - t0
+            print('mesh ' + json.dumps(scan), flush=True)
+            t1 = time.perf_counter()
+            step, steps, calls = mesh_step_phase(mesh, scanner.cps,
+                                                 scanner, pods)
+            launches = {k: scan['launches'][k] + step['launches'][k]
+                        for k in scan['launches']}
+            k4 = k4_phase(calls, device, seed)
+            step['seconds'] = time.perf_counter() - t1
+            print('mesh_step ' + json.dumps(dict(step, k4h={
+                n: {k: c.get(k) for k in ('shape', 'max_abs_err', 'ms',
+                                          'kernel_device_ms', 'plain_ms',
+                                          'library_ms', 'bound_ms')}
+                for n, c in k4['cases'].items()})), flush=True)
+        finally:
+            dist.destroy_process_group()
+        missing = [k for k in MESH_KERNELS if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f'kernels never launched on the mesh path: '
+                                 f'{missing}')
+        t2 = time.perf_counter()
+        print(f'cut: mesh_2rank: one distributed_scan_step over '
+              f'{MESH_CHILD_STEP_ROWS} Pods (2 x {MESH_STEP_ROWS}) and '
+              f'scan_report_results over {MESH_CHILD_PODS} of the '
+              f'{len(pods)} Pods (3 chunks + 1)', flush=True)
+        children = spawn_mesh_children(seed, tmp)
+    want_summary = (steps[0][1] + steps[1][1]).tolist()
+    want_statuses = hashlib.sha256(np.concatenate(
+        [steps[0][0], steps[1][0]]).tobytes()).hexdigest()
+    want_digest = digest_of(digests, MESH_CHILD_PODS)
+    by_rank = {c['rank']: c for c in children}
+    problems = []
+    if sorted(by_rank) != [0, 1]:
+        problems.append(f'ranks {sorted(by_rank)}')
+    for rank, c in sorted(by_rank.items()):
+        if c['summary'] != want_summary:
+            problems.append(f'rank {rank}: summary differs from the '
+                            f'world-size-1 steps')
+        if c['statuses'] != want_statuses:
+            problems.append(f'rank {rank}: statuses differ')
+        if c['row_digest'] != want_digest:
+            problems.append(f'rank {rank}: report digest differs from the '
+                            f'world-size-1 scan')
+        if c['leader'] is not (rank == 0):
+            problems.append(f'rank {rank}: leader={c["leader"]}')
+        if c['launches']['k4_status_hist'] <= 0:
+            problems.append(f'rank {rank}: K4h never launched')
+        if (c['backend'], c['world_size']) != ('gloo', MESH_CHILD_RANKS):
+            problems.append(f'rank {rank}: {c["backend"]} x '
+                            f'{c["world_size"]}')
+    two = {'children': children, 'seconds': time.perf_counter() - t2,
+           'launches': {k: sum(c['launches'][k] for c in children)
+                        for k in children[0]['launches']} if children else {},
+           'agree': not problems}
+    print('mesh_2rank ' + json.dumps(two), flush=True)
+    if problems:
+        raise AssertionError('two-rank mesh: ' + '; '.join(problems))
+    return {'scan': scan, 'step': step, 'two_rank': two, 'k4': k4,
+            'launches': launches}
+
+
+def mesh_child(args) -> int:
+    """One rank of phase 4c: its encoder pool forked first, then the
+    gloo group, then one step over ``--step-rows`` Pods and the report
+    scan over ``--pods`` Pods on this rank's device.  Prints one
+    ``mesh_child`` JSON line."""
+    import hashlib
+    import torch.distributed as dist
+    from kyverno_tpu_torch import smokepack
+    from kyverno_tpu_torch.compiler.compile import compile_policies
+    from kyverno_tpu_torch.compiler.scan import BatchScanner, _EncoderPool
+    from kyverno_tpu_torch.controllers.leaderelection import mesh_is_leader
+    from kyverno_tpu_torch.observability import fleet
+    from kyverno_tpu_torch.ops import kernels
+    from kyverno_tpu_torch.parallel.mesh import (distributed_scan_step,
+                                                 make_mesh)
+    from kyverno_tpu_torch.device import resolve_device
+    t0 = time.perf_counter()
+    resolve_device(args.device)    # no card asked for and none there: fail
+    policies = smokepack.load_smoke_pack()
+    rng = random.Random(args.seed)
+    pods = [smokepack.make_config4_pod(rng, i) for i in range(args.pods)]
+    pool = _EncoderPool(compile_policies(policies),
+                        int(os.environ.get('KTPU_ENCODE_PROCS', '2')))
+    pool.start()                    # before any CUDA context or group
+    try:
+        init_group('gloo', args.store, args.mesh_child, MESH_CHILD_RANKS)
+        try:
+            mesh = make_mesh(device=args.device)
+            kernels.reset_launches()
+            t1 = time.perf_counter()
+            statuses, summary = distributed_scan_step(
+                compile_policies(policies), mesh, pods[:args.step_rows])
+            step_s = time.perf_counter() - t1
+            msc = BatchScanner(policies, mesh=mesh)
+            msc._encoder_pool = pool
+            t2 = time.perf_counter()
+            rows = [(r, sm) for r, sm, _p in msc.scan_report_results(
+                pods, now=NOW)]
+            scan_s = time.perf_counter() - t2
+            launches = dict(kernels.LAUNCHES)
+            result = {
+                'rank': mesh.rank, 'world_size': mesh.world_size,
+                'backend': mesh.backend, 'device': str(mesh.device),
+                'devices': mesh.devices, 'leader': mesh_is_leader(),
+                'process_index': fleet.identity()['process_index'],
+                'summary': summary.tolist(),
+                'summary_dtype': str(summary.dtype),
+                'statuses': hashlib.sha256(statuses.tobytes()).hexdigest(),
+                'step_rows': len(statuses), 'step_s': step_s,
+                'pods': len(rows), 'scan_s': scan_s,
+                'pods_per_s': len(rows) / scan_s,
+                'row_digest': digest_of(row_digests(rows)),
+                'launches': launches,
+                'seconds': time.perf_counter() - t0}
+        finally:
+            dist.destroy_process_group()
+    finally:
+        pool.close()
+    print('mesh_child ' + json.dumps(result), flush=True)
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -913,7 +1356,7 @@ def admission_phase(seed: int) -> dict:
                              handlers._policy_key(mutate))
                  if handlers._breakers.state(k) != breaker.CLOSED]
     report['launches'] = {k: sum(launches[p][k] for p in launches)
-                          for k in kernels.LAUNCHES}
+                          for k in ADMISSION_KERNELS}
 
     sp, bp = report['sync'], report['batch']
     problems = []
@@ -952,11 +1395,22 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--pods', type=int, default=100_000)
     ap.add_argument('--seed', type=int, default=0)
+    ap.add_argument('--mesh-child', type=int, metavar='RANK',
+                    help='run as one rank of the two-rank mesh phase')
+    ap.add_argument('--store', help='(--mesh-child) rendezvous file')
+    ap.add_argument('--step-rows', type=int, default=MESH_CHILD_STEP_ROWS,
+                    help='(--mesh-child) Pods of the distributed step')
+    ap.add_argument('--device', default='cuda:0',
+                    help='(--mesh-child) the rank\'s device')
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, 'kyverno_tpu_torch')):
         _die('kyverno_tpu_torch/ is not beside this script; run it from a '
              'checkout of the repository')
     sys.path.insert(0, HERE)
+    if args.mesh_child is not None:
+        if not args.store:
+            _die('--mesh-child needs --store')
+        return mesh_child(args)
     import torch
     if not torch.cuda.is_available():
         _die('torch.cuda.is_available() is False: this script measures '
@@ -968,6 +1422,14 @@ def main(argv=None) -> int:
     from kyverno_tpu_torch.mutate import MutateScanner
     from kyverno_tpu_torch.ops import _build
     report = {'argv': sys.argv[1:], 'seed': args.seed}
+    phase_s = {}
+    t_phase = time.perf_counter()
+
+    def phase_done(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        phase_s[name] = now - t_phase
+        t_phase = now
 
     # 1. card -------------------------------------------------------------
     smi = _nvidia_smi()
@@ -979,6 +1441,7 @@ def main(argv=None) -> int:
             'per_kernel_build_s': built}
     print('card ' + json.dumps(card), flush=True)
     report['card'] = card
+    phase_done('card')
     report['ptxas'] = {n: _build.build_log(n) for n in _build.KERNELS}
 
     policies = smokepack.load_smoke_pack()
@@ -1007,18 +1470,26 @@ def main(argv=None) -> int:
                 bound_us=r['bound_ms'] * 1e3) for r in records}),
               flush=True)
         report['first_chunk'] = chunk_stats
+        phase_done('kernels')
 
         # 3. slice --------------------------------------------------------
-        sl = slice_phase(scanner, policies, pods)
+        sl, slice_digests = slice_phase(scanner, policies, pods)
         print('slice ' + json.dumps(sl), flush=True)
         report['slice'] = sl
         if sl['mismatches']:
             raise AssertionError(f'{sl["mismatches"]} rows differ from the '
                                  f'host engine: {sl["first_mismatches"]}')
+        phase_done('slice')
+
+        # 4. mesh ---------------------------------------------------------
+        mesh = mesh_phase(policies, pods, scanner, slice_digests, device,
+                          args.seed)
+        report['mesh'] = {k: v for k, v in mesh.items() if k != 'k4'}
+        phase_done('mesh')
     finally:
         scanner._encoder_pool.close()
 
-    # 4. K3 -------------------------------------------------------------
+    # 5. K3 -------------------------------------------------------------
     mpolicies = smokepack.load_mutate_pack()
     mrng = random.Random(args.seed + 7)
     mpods = [smokepack.make_mutate_pod(mrng, i) for i in range(MUTATE_CHUNK)]
@@ -1031,33 +1502,43 @@ def main(argv=None) -> int:
         'plain_ms', 'bound_ms', 'status_counts', 'bit31_rows')}
         for n, c in k3['cases'].items()}), flush=True)
     records.append(k3)
+    phase_done('k3')
 
-    # 5. mutate chunk ---------------------------------------------------
+    # 6. mutate chunk ---------------------------------------------------
     mu = mutate_phase(mscanner, mpolicies, mpods, args.seed)
     print('mutate ' + json.dumps(mu), flush=True)
     report['mutate'] = mu
     if mu['mismatches']:
         raise AssertionError(f'{mu["mismatches"]} mutate rows differ from '
                              f'the host chain: {mu["first_mismatches"]}')
+    phase_done('mutate')
 
-    # 6. admission ------------------------------------------------------
+    # 7. admission ------------------------------------------------------
     adm = admission_phase(args.seed)
     print('admission ' + json.dumps(adm), flush=True)
     report['admission'] = adm
-    report['kernels'] = records
+    phase_done('admission')
     for r in records:
-        r['launches_by_path'] = {
-            'scan': sl['launches'].get(r['name'], 0),
-            'mutate_chunk': mu['launches'].get(r['name'], 0),
-            'admission': adm['launches'].get(r['name'], 0)}
-        # this slice's main path is the admission webhook: its launches,
-        # and the times and bound of the kernel at the shapes that path
-        # gave it; the chunk-shape numbers stay beside them
+        # K1h, K1c and K3 are held at the admission webhook's shapes:
+        # its launches, and the times and bound of the kernel at the
+        # shapes that path gave it; the chunk-shape numbers stay beside
         r['launches'] = adm['launches'].get(r['name'], 0)
         at = adm['kernels_at_admission'][r['name']]
         r['at_chunk'] = {k: r[k] for k in AT_SHAPE}
         r.update({k: at[k] for k in AT_SHAPE})
         r['max_abs_err'] = max(r['max_abs_err'], at['max_abs_err'])
+    # K4h runs on the mesh path, and is held at the step's shapes
+    k4 = dict(mesh['k4'], launches=mesh['launches']['k4_status_hist'])
+    records.append(k4)
+    for r in records:
+        r['launches_by_path'] = {
+            'scan': sl['launches'].get(r['name'], 0),
+            'mesh': mesh['launches'].get(r['name'], 0),
+            'mesh_2rank': mesh['two_rank']['launches'].get(r['name'], 0),
+            'mutate_chunk': mu['launches'].get(r['name'], 0),
+            'admission': adm['launches'].get(r['name'], 0)}
+    report['kernels'] = records
+    report['phase_s'] = phase_s
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     report['device'] = {'kind': kind, 'count': count}
@@ -1067,6 +1548,8 @@ def main(argv=None) -> int:
         json.dump(report, f, indent=1)
     if adm['problems']:
         raise AssertionError('admission: ' + '; '.join(adm['problems']))
+    print('phases ' + json.dumps(dict(
+        phase_s, total=sum(phase_s.values()))), flush=True)
     print(json.dumps({'kernels': [{k: r[k] for k in (
         'name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
         'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')}

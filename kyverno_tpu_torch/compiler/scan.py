@@ -212,15 +212,19 @@ class BatchScanner:
 
     def __init__(self, policies: List[Policy], engine: Optional[Engine] = None,
                  mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                'multi-device scans (parallel/mesh.py) are not ported yet')
         from ..device import resolve_device
-        self.device = resolve_device(device)
+        if mesh is not None and device is None:
+            # a mesh scanner evaluates this rank's rows on its device
+            self.device = mesh.device
+        else:
+            self.device = resolve_device(device)
+            if mesh is not None and self.device != mesh.device:
+                raise ValueError(f'device {self.device} is not the mesh '
+                                 f'rank\'s device {mesh.device}')
         self.policies = policies
         self.engine = engine or Engine()
         self.cps: CompiledPolicySet = compile_policies(policies)
-        self.mesh = None
+        self.mesh = mesh
         # policies needing the host engine for at least one rule, plus
         # applyRules=One policies (early-exit coupling between rules)
         self._host_policy_idx = sorted(
@@ -263,14 +267,15 @@ class BatchScanner:
         self._adm = getattr(self._evaluator, 'adm_table', None)
         self._adm_cols = self._evaluator.adm_cols \
             if self._adm is not None else None
-        # partitioned compile (KTPU_PARTITIONS > 0) is not ported: refuse
-        # it rather than silently scanning monolithically
+        # partitioned compile (KTPU_PARTITIONS > 0, non-mesh) is not
+        # ported: refuse it rather than silently scanning monolithically
+        # (a mesh scan is monolithic, as in the reference)
         try:
             _n_parts = int(__import__('os').environ.get(
                 'KTPU_PARTITIONS', '0') or 0)
         except ValueError:
             _n_parts = 0
-        if _n_parts > 0:
+        if _n_parts > 0 and mesh is None:
             raise NotImplementedError(
                 'KTPU_PARTITIONS > 0: partitioned compilation is not '
                 'ported yet; unset it to scan with the whole policy set')
@@ -340,14 +345,17 @@ class BatchScanner:
             batch = encode_batch([copy.deepcopy(WARM_POD)], self.cps,
                                  padded_n=cap)
             tensors = batch.tensors()
-            # mirror dispatch_work: dispatches always ship the
-            # unique-space match plane (values are irrelevant for
-            # warming) and the admission lanes when the set has any
-            tensors['__match__'] = np.zeros(
-                (cap, self._evaluator.n_uniq), np.uint8)
-            if self._adm is not None:
-                tensors.update(admission_lanes.zero_lanes(self._adm, cap))
-            t, layout = shard_batch(tensors, self.device)
+            if self.mesh is None:
+                # mirror dispatch_work: non-mesh dispatches always ship
+                # the unique-space match plane (values are irrelevant
+                # for warming) and the admission lanes when the set has
+                # any
+                tensors['__match__'] = np.zeros(
+                    (cap, self._evaluator.n_uniq), np.uint8)
+                if self._adm is not None:
+                    tensors.update(admission_lanes.zero_lanes(
+                        self._adm, cap))
+            t, layout = shard_batch(tensors, self.device, mesh=self.mesh)
             out = self._evaluator(t, layout)
             for arr in out:
                 arr.cpu()  # waits for the device work
@@ -721,7 +729,7 @@ class BatchScanner:
                 else:
                     tensors.update(admission_lanes.zero_lanes(
                         self._adm, padded))
-            t, layout = shard_batch(tensors, device)
+            t, layout = shard_batch(tensors, device, mesh=self.mesh)
             p['enc'] = p['part'] = p['part_ctx'] = None
             p['t'], p['layout'] = t, layout
             return p
@@ -749,9 +757,36 @@ class BatchScanner:
                 release_chunk(p)
                 return (start, s[:ln], d[:ln], fd[:ln],
                         adm[:ln] if adm is not None else None, cm)
+            s, d, fd = out
+            if self.mesh is not None:
+                from ..observability import fleet
+                shard_walls = None
+                t_coll = 0.0
+                # this rank holds its slice of the chunk's rows
+                padded_rows = int(s.shape[0]) * self.mesh.world_size
+                if fleet.enabled():
+                    # mesh-path telemetry (fleet observatory): time
+                    # this shard's readback wait, then the collective
+                    # leg — pure timing, the values are untouched
+                    from ..parallel.mesh import shard_wait_splits
+                    shard_walls = shard_wait_splits(s)
+                    t_coll = time.perf_counter()
+                if self.mesh.world_size > 1:
+                    # each rank only holds its rows of the batch axis —
+                    # gather the full matrices in rank order so every
+                    # rank assembles identical reports (the reference
+                    # replicates this work per replica)
+                    s = self.mesh.all_gather_rows(s)
+                    d = self.mesh.all_gather_rows(d)
+                    fd = self.mesh.all_gather_rows(fd)
+                if shard_walls is not None:
+                    from ..parallel.mesh import record_sharded_dispatch
+                    record_sharded_dispatch(
+                        self.mesh, 'data', ln, padded_rows, shard_walls,
+                        time.perf_counter() - t_coll)
             with devtel.d2h_guard({'chunk_start': start,
                                    'rows': ln}) as g:
-                s, d, fd = (arr.cpu().numpy()[:ln] for arr in out)
+                s, d, fd = (arr.cpu().numpy()[:ln] for arr in (s, d, fd))
                 g.add_d2h_bytes(s.nbytes + d.nbytes + fd.nbytes)
             self._free_inputs(t, out)
             cm = p['cm']

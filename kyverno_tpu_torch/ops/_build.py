@@ -41,6 +41,9 @@ KERNELS: Dict[str, tuple] = {
     'k3_mutate': ('k3_mutate', (ctypes.c_void_p,) * 17 + (
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)),
+    'k4_status_hist': ('k4_status_hist', (
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p)),
 }
 
 _lock = threading.Lock()

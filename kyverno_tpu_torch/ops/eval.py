@@ -2000,20 +2000,26 @@ def unpack_batch(packed: Dict[str, Any],
     return out
 
 
-def shard_batch(tensors: Dict[str, np.ndarray], device) -> Tuple[
-        Dict[str, torch.Tensor], Dict[str, Tuple[str, int, int,
-                                                 Tuple[int, ...]]]]:
+def shard_batch(tensors: Dict[str, np.ndarray], device, mesh=None
+                ) -> Tuple[Dict[str, torch.Tensor],
+                           Dict[str, Tuple[str, int, int, Tuple[int, ...]]]]:
     """Pack + place batch tensors on ``device``: one buffer per dtype
     (``pack_batch``), each staged through pinned host memory and copied
     with ``non_blocking`` on the current stream, so the copy overlaps
     the host work that follows and orders before the evaluator's ops on
     the same stream (the caching host allocator keeps a pinned block
     until its copy has completed).  On the CPU the buffers are wrapped
-    without a copy.  Returns (packed_device_dict, layout)."""
+    without a copy.  With a ``mesh`` (``parallel/mesh.py``) only this
+    rank's row slice of each buffer is staged (the resource axis of
+    packed buffers is axis 0; the row count must divide over the mesh).
+    Returns (packed_device_dict, layout)."""
     from ..observability import device as devtel
     device = torch.device(device)
     with devtel.stage('pack'):
         packed, layout = pack_batch(tensors)
+        if mesh is not None and packed:
+            rows = mesh.row_slice(next(iter(packed.values())).shape[0])
+            packed = {k: v[rows] for k, v in packed.items()}
     with devtel.stage('h2d') as st:
         st.set_attribute('bytes', sum(v.nbytes for v in packed.values()))
         out: Dict[str, torch.Tensor] = {}

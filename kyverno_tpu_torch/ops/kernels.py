@@ -1,7 +1,8 @@
 """Wrappers of the hand-written CUDA kernels, and their plain versions.
 
-Two parts of the evaluator (``ops/eval.py``) and the device mutate
-decision (``mutate/kernel.py``) run as kernels written for Hopper
+Two parts of the evaluator (``ops/eval.py``), the device mutate
+decision (``mutate/kernel.py``) and the sharded step's histogram
+(``parallel/mesh.py``) run as kernels written for Hopper
 (``csrc/*.cu``, built by ``ops/_build.py``):
 
 * K1h ``fdet_select`` — the compact fail-detail select of
@@ -10,7 +11,9 @@ decision (``mutate/kernel.py``) run as kernels written for Hopper
 * K1c ``wildcard_match`` — the glob DP of ``_View.wildcard_const`` and
   its Kleene verdict;
 * K3 ``k3_mutate`` — per (resource, rule) of a lowered mutate set: the
-  edit bitmask, the status and the first-fault reason.
+  edit bitmask, the status and the first-fault reason;
+* K4h ``status_histogram`` — the per-rule verdict histogram of the
+  sharded scan step (``parallel/mesh.py``), before its all-reduce.
 
 Each wrapper checks device, dtype, shape and contiguity, launches on
 the current CUDA stream, raises if the launch fails, and counts its
@@ -22,7 +25,7 @@ the JAX package, and what the card's kernels are held against.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -31,7 +34,7 @@ from ..compiler.ir import (TAG_ARRAY, TAG_BOOL, TAG_FLOAT, TAG_INT,
 
 #: launches per kernel since the last ``reset_launches``
 LAUNCHES: Dict[str, int] = {'k1h_fdet_select': 0, 'k1c_wildcard': 0,
-                             'k3_mutate': 0}
+                             'k3_mutate': 0, 'k4_status_hist': 0}
 
 #: widest byte window and longest pattern the K1c kernel takes
 #: (``STR_LEN`` = 64 bounds every ``str_head`` lane)
@@ -373,3 +376,89 @@ def k3_mutate_plain(lanes: Dict[str, torch.Tensor],
     return (torch.where(vcol, status, MUT_SKIP).to(torch.int8),
             torch.where(vcol, edits, 0),
             torch.where(vcol, reason, RC_NONE).to(torch.int8))
+
+
+# ---------------------------------------------------------------------------
+# K4h: the per-rule verdict histogram of the sharded scan step
+
+#: status codes the K4h kernel's shared-memory histogram can hold
+K4_MAX_CODES = 12288
+
+
+def _k4_check(statuses: torch.Tensor, rowvalid: Optional[torch.Tensor],
+              n_codes: int) -> None:
+    _check(statuses.dim() == 2 and statuses.dtype == torch.int8,
+           f'statuses must be a 2-D int8 tensor, got {statuses.dtype} '
+           f'{tuple(statuses.shape)}')
+    if rowvalid is not None:
+        _check(rowvalid.dtype == torch.uint8 and
+               tuple(rowvalid.shape) == (statuses.shape[0],),
+               f'rowvalid must be uint8 [{statuses.shape[0]}], got '
+               f'{rowvalid.dtype} {tuple(rowvalid.shape)}')
+    _check(1 <= n_codes <= K4_MAX_CODES,
+           f'n_codes={n_codes} outside [1, {K4_MAX_CODES}]')
+
+
+def status_histogram(statuses: torch.Tensor,
+                     rowvalid: Optional[torch.Tensor], n_codes: int
+                     ) -> torch.Tensor:
+    """``[P, n_codes]`` int64: per program column p and code c, the rows
+    of ``statuses`` (int8 ``[R, P]``) holding c whose ``rowvalid``
+    (uint8 ``[R]``; None for no mask) is non-zero.  A code outside
+    ``[0, n_codes)`` counts nowhere."""
+    _k4_check(statuses, rowvalid, n_codes)
+    ts = (statuses,) if rowvalid is None else (statuses, rowvalid)
+    if _on_cpu(*ts):
+        return status_histogram_plain(statuses, rowvalid, n_codes)
+    _check(all(t.is_contiguous() for t in ts),
+           'status_histogram takes contiguous tensors')
+    r, p = statuses.shape
+    out = torch.zeros((p, n_codes), dtype=torch.int64,
+                      device=statuses.device)
+    if r == 0 or p == 0:
+        return out
+    from . import _build
+    lib = _build.load('k4_status_hist')
+    with torch.cuda.device(statuses.device):
+        rc = lib.k4_status_hist(
+            statuses.data_ptr(),
+            rowvalid.data_ptr() if rowvalid is not None else None,
+            out.data_ptr(), r, p, n_codes, _stream(statuses))
+    if rc != 0:
+        raise RuntimeError(f'k4_status_hist launch failed: CUDA error {rc}')
+    LAUNCHES['k4_status_hist'] += 1
+    return out
+
+
+def status_histogram_plain(statuses: torch.Tensor,
+                           rowvalid: Optional[torch.Tensor], n_codes: int
+                           ) -> torch.Tensor:
+    """Plain torch version (kyverno_tpu/parallel/mesh.py
+    ``build_sharded_evaluator.step``): a one-hot over the codes, masked
+    by the row validity, summed over the rows.  The one-hot compares
+    against ``arange(n_codes)``, so, as ``jax.nn.one_hot``, a code
+    outside the range gives an all-zero row."""
+    codes = torch.arange(n_codes, dtype=torch.int64, device=statuses.device)
+    one_hot = (statuses.to(torch.int64)[..., None] == codes).to(torch.int64)
+    if rowvalid is not None:
+        one_hot = one_hot * (rowvalid != 0).to(torch.int64)[:, None, None]
+    return one_hot.sum(dim=0)
+
+
+def status_histogram_library(statuses: torch.Tensor,
+                             rowvalid: Optional[torch.Tensor], n_codes: int
+                             ) -> torch.Tensor:
+    """The same function as one ``torch.bincount`` over ``p * n_codes +
+    code``, weighted by the row mask with out-of-range codes masked out.
+    A speed yardstick only: the port never calls it."""
+    p = statuses.shape[1]
+    codes = statuses.to(torch.int64)
+    keep = (codes >= 0) & (codes < n_codes)
+    if rowvalid is not None:
+        keep = keep & (rowvalid != 0)[:, None]
+    cols = torch.arange(p, dtype=torch.int64, device=statuses.device)
+    idx = cols * n_codes + torch.clamp(codes, 0, n_codes - 1)
+    counts = torch.bincount(idx.flatten(),
+                            weights=keep.flatten().to(torch.float64),
+                            minlength=p * n_codes)
+    return counts.to(torch.int64).reshape(p, n_codes)

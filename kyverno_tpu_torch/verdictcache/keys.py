@@ -56,7 +56,8 @@ def spec_digest(resource: dict) -> str:
 #: result dicts
 ENGINE_SOURCES = ('ops/eval.py', 'ops/kernels.py',
                   'csrc/k1h_fdet_select.cu', 'csrc/k1c_wildcard.cu',
-                  'csrc/k3_mutate.cu', 'compiler/compile.py',
+                  'csrc/k3_mutate.cu', 'csrc/k4_status_hist.cu',
+                  'compiler/compile.py',
                   'compiler/encode.py', 'compiler/ir.py',
                   'compiler/pss_compile.py', 'compiler/scan.py',
                   'reports/results.py')

@@ -6,6 +6,7 @@ carries are verbatim copies of the JAX package's, and its entry points
 default to the CUDA card."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -20,7 +21,9 @@ REF = os.path.join(ROOT, 'kyverno_tpu')
 #: modules of the port whose device seams differ from the JAX package's
 PORTED = {'__init__.py', 'ops/eval.py', 'compiler/scan.py',
           'mutate/kernel.py', 'mutate/scanner.py', 'partition/keys.py',
-          'verdictcache/keys.py', 'webhooks/handlers.py'}
+          'verdictcache/keys.py', 'webhooks/handlers.py',
+          'parallel/mesh.py', 'observability/fleet.py',
+          'observability/profiling.py', 'controllers/leaderelection.py'}
 #: verbatim copies whose absolute self-import was renamed, by line
 REWRITTEN = {'engine/jmespath/__init__.py': {5}}
 
@@ -165,6 +168,63 @@ def test_port_serves_admission_with_jax_blocked(tmp_path):
                           cwd=ROOT, env=env)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert 'ISOLATED-OK' in proc.stdout
+
+
+_CHILD_MESH = _CHILD.split('from kyverno_tpu_torch import smokepack')[0] + r'''
+import runpy
+sys.argv = ['chip_smoke.py'] + sys.argv[2:]
+try:
+    runpy.run_path(os.path.join(root, 'chip_smoke.py'), run_name='__main__')
+except SystemExit as e:
+    assert not e.code, e.code
+assert not [m for m in sys.modules if blocked(m)]
+print('ISOLATED-OK')
+'''
+
+
+def test_chip_smoke_mesh_children_run_with_jax_blocked(tmp_path):
+    """The two ranks that ``chip_smoke.py`` spawns for its two-rank mesh
+    phase, run here on the CPU at a tiny size under gloo with the import
+    blocker: they import nothing of JAX and agree."""
+    env = dict(os.environ)
+    env.pop('PYTHONPATH', None)
+    env.update({'KTPU_SCAN_CHUNK': '16', 'KTPU_ENCODE_PROCS': '0',
+                'GLOO_SOCKET_IFNAME': 'lo'})
+    args = ['--pods', '49', '--step-rows', '32',
+            '--store', str(tmp_path / 'store'), '--device', 'cpu',
+            '--mesh-child']
+    procs = []
+    for rank in range(2):
+        # output to files: a rank blocked on a full pipe would stall its
+        # peer in a collective
+        with open(tmp_path / f'rank{rank}.out', 'w') as out, \
+                open(tmp_path / f'rank{rank}.err', 'w') as err:
+            procs.append(subprocess.Popen(
+                [sys.executable, '-c', _CHILD_MESH, ROOT] + args + [str(rank)],
+                cwd=ROOT, env=env, stdout=out, stderr=err))
+    results = []
+    try:
+        for rank, proc in enumerate(procs):
+            proc.wait(timeout=240)
+            out = (tmp_path / f'rank{rank}.out').read_text()
+            err = (tmp_path / f'rank{rank}.err').read_text()
+            assert proc.returncode == 0, err[-3000:]
+            assert 'ISOLATED-OK' in out
+            [line] = [ln for ln in out.splitlines()
+                      if ln.startswith('mesh_child ')]
+            results.append(json.loads(line[len('mesh_child '):]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    r0, r1 = sorted(results, key=lambda r: r['rank'])
+    assert (r0['rank'], r0['leader'], r1['rank'], r1['leader']) == \
+        (0, True, 1, False)
+    assert r1['process_index'] == 1
+    for key in ('summary', 'statuses', 'row_digest'):
+        assert r0[key] == r1[key], key
+    assert r0['pods'] == 49 and r0['step_rows'] == 32
 
 
 def test_engine_rev_digests_the_ports_own_sources():

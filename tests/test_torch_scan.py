@@ -198,14 +198,19 @@ def test_streaming_early_close_releases_pipeline():
 
 
 def test_refuses_partitions_and_mesh(monkeypatch):
+    """Partitioned compilation is still refused; a mesh no longer is
+    (``parallel/mesh.py`` is ported), and a mesh scan stays monolithic
+    under ``KTPU_PARTITIONS``, as in the reference."""
     from kyverno_tpu_torch.compiler.scan import BatchScanner
+    from kyverno_tpu_torch.parallel.mesh import make_mesh
     _jpols, tpols = load_pack('smoke')
     monkeypatch.setenv('KTPU_PARTITIONS', '2')
     with pytest.raises(NotImplementedError):
         BatchScanner(tpols, device='cpu')
+    mesh = make_mesh(device='cpu')
+    assert BatchScanner(tpols, mesh=mesh, device='cpu').mesh is mesh
     monkeypatch.setenv('KTPU_PARTITIONS', '0')
-    with pytest.raises(NotImplementedError):
-        BatchScanner(tpols, mesh=object(), device='cpu')
+    assert BatchScanner(tpols, mesh=mesh).mesh is mesh
 
 
 def test_scanner_defaults_to_cuda(monkeypatch):
