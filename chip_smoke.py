@@ -6,17 +6,29 @@ reports controller serves, ``BatchScanner.scan_report_results`` — on the
 CUDA card and checks it, in phases that each print one line:
 
 1. ``card``: the card's name and power limit (nvidia-smi), the torch and
-   CUDA versions, and the time to build the hand-written kernels from
-   ``kyverno_tpu_torch/csrc`` (one nvcc per source, all at once).
-2. ``kernels``: each kernel (K1h fail-detail select, K1c wildcard DP)
-   against its plain torch version on the card, at the main path's
-   shapes — the first chunk's real tensors plus seeded random ones.
-   Outputs must be exactly equal.  Times come from CUDA events.
+   CUDA versions, the time to build the hand-written kernels from
+   ``kyverno_tpu_torch/csrc`` (one nvcc per source, all at once) and
+   ptxas' registers, stack and spills of each.
+2. ``float64_division``, ``kernels``, ``k1_chunk``: the eager walk's
+   float64 quotients against IEEE division on the host (they must be
+   equal); then the evaluator on the first 16,384-row chunk, once with
+   K1v (the status-program interpreter) and once with its plain
+   version, the eager walk, on the same card tensors: out8 and out32
+   must be bit-equal, and the eager run hands K1c and K1h their inputs
+   (K1c's DP runs inside K1v on the main path, so K1c launches only
+   there).  ``k1_chunk`` reports per K1 call the aten ops
+   (torch.profiler, split K1v / K1h / K1i / glue by the evaluator's
+   labels), the host dispatch and the device span, against the eager
+   walk's, and each program's route.  ``kernels``: K1v, K1h and K1c
+   against their plain versions on the card at the main path's shapes —
+   the chunk's real tensors plus seeded random ones.  Outputs must be
+   exactly equal.  Times come from CUDA events.
 3. ``slice``: ``scan_report_results`` over ``--pods`` Pods (default
    100,000, a large production cluster) with the smoke pack's 12
    policies: Pods/s, decisions/s, the stage breakdown, the
    device-decided fraction, each kernel's launches during the scan
-   (each must be > 0) and the encoder pool's state.  The first 2,000
+   (K1v and K1h must launch, K1v once per chunk) and the encoder pool's
+   state.  The first 2,000
    rows and every row of the last chunk are held against the port's
    host ``Engine``; any mismatch fails the run.  A sha256 digest over
    every result row is kept for the mesh phase.
@@ -29,7 +41,8 @@ CUDA card and checks it, in phases that each print one line:
    fleet telemetry reports the shard wall and collective seconds.  (b)
    ``distributed_scan_step`` over three steps of 16,384 Pods on that
    group: each summary must equal a numpy histogram of its statuses, the
-   statuses must equal the single-device scanner's, and the histogram
+   statuses must equal the single-device scanner's, K1v must equal the
+   eager walk on one step's ``.raw`` inputs, and the histogram
    kernel (K4h) is held against its plain version on the exact card
    tensors a step gave it, on a seeded random case (131,072 rows, 256
    programs) and on empty shapes (no launch).  (c) Two ranks on the one
@@ -56,8 +69,10 @@ CUDA card and checks it, in phases that each print one line:
    Response bytes of every sync review and of 2,000 batch reviews are
    held against a host-loop handler (``device=False``).  Before the
    passes, one sync review of each route is served with the kernel
-   wrappers spied on, and each kernel is held against its plain version
-   on the exact card tensors that review gave it (K1h and K1c at the
+   wrappers spied on; K1v's evaluator call is repeated with the eager
+   walk (bit-equal out8/out32; ``k1_admission`` reports the aten ops and
+   dispatch per call), and each kernel is held against its plain version
+   on the exact card tensors that review gave it (K1v, K1h and K1c at the
    64-row admission capacity, K3 at the /mutate lanes).  Because the
    handler serves a failed device path from the host engine with the
    same bytes, the phase also counts the serving path of each validate
@@ -65,10 +80,13 @@ CUDA card and checks it, in phases that each print one line:
    dispatched and the breaker failures, and fails unless the device
    served (see ``admission_phase``).
 
-Then the seconds of each phase, one JSON line of per-kernel numbers
-(launches on the path that runs each kernel: the admission path for K1h,
-K1c and K3, with the error, times and bound at the admission shapes, the
-chunk-shape numbers being in the report; the mesh path for K4h, at the
+Every phase fails if a program of the smoke or admission pack is routed
+to the eager walk.  Then the seconds of each phase, one JSON line of
+per-kernel numbers (launches on the path that runs each kernel: the
+admission path for K1v, K1h and K3, with the error, times and bound at
+the admission shapes, the chunk-shape numbers being in the report; K1c,
+whose DP runs inside K1v, reports 0 launches on the main path and its
+comparison-run launches in the report; the mesh path for K4h, at the
 step's shapes), the nvidia-smi line, and as the
 last line ``{"ok": true, "device": {...}}``.  A full report goes to
 ``chiprun_out/chip_smoke.json``.
@@ -102,9 +120,12 @@ MIN_PODS = 3 * 16384 + 1       # never cut below three full chunks
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 CUDA_CORE_OPS_PER_S = 67e12    # H100 SXM non-tensor rate (data sheet)
 PCIE_BYTES_PER_S = 64e9        # PCIe Gen5 x16, one direction (data sheet)
-SCAN_KERNELS = ('k1h_fdet_select', 'k1c_wildcard')  # launched by the scan
-MESH_KERNELS = ('k1c_wildcard', 'k4_status_hist')   # by the mesh path
-ADMISSION_KERNELS = ('k1h_fdet_select', 'k1c_wildcard', 'k3_mutate')
+SCAN_KERNELS = ('k1_vm', 'k1h_fdet_select')        # launched by the scan
+MESH_KERNELS = ('k1_vm', 'k4_status_hist')          # by the mesh path
+ADMISSION_KERNELS = ('k1_vm', 'k1h_fdet_select', 'k3_mutate')
+#: launched by the eager walk (K1v's plain version) that the K1v checks
+#: run on the card: K1c's DP runs inside K1v on the main path
+CAPTURE_KERNELS = ('k1c_wildcard', 'k1h_fdet_select')
 MESH_STEP_ROWS = 16384         # rows of each distributed_scan_step
 MESH_STEPS = 3                 # steps on the world-size-1 group
 MESH_CHILD_RANKS = 2                        # ranks of the two-rank mesh
@@ -159,6 +180,34 @@ def _ms(fn, device, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def float64_division_check(device) -> dict:
+    """The eager walk's float64 quotient (``ops/eval.py _fdiv``: the
+    host's ``float(key)`` of a milli lane, and nanos over 1e9) on the
+    card against IEEE division on the host, over every milli value in
+    [-200, 200] and seeded int64s up to 2^53; beside it, how many of
+    those a Python-scalar divisor, which CUDA applies as a product with
+    its reciprocal, gets wrong.  Fails unless ``_fdiv`` is exact."""
+    import torch
+    from kyverno_tpu_torch.ops.eval import _fdiv
+    gen = torch.Generator().manual_seed(0)
+    x = torch.cat([torch.arange(-200000, 200001, dtype=torch.int64),
+                   torch.randint(-(1 << 53), 1 << 53, (1 << 20,),
+                                 generator=gen)])
+    out = {'values': int(x.numel())}
+    for name, div in (('over_1000', 1000.0), ('over_1e9', 1e9)):
+        want = x.to(torch.float64) / div
+        xd = x.to(device)
+        walk = int((_fdiv(xd, div).cpu() != want).sum())
+        scalar = int(((xd.to(torch.float64) / div).cpu() != want).sum())
+        out[name] = {'walk_differs': walk,
+                               'scalar_divisor_differs': scalar}
+        if walk:
+            raise AssertionError(f'the eager walk\'s float64 division by '
+                                 f'{div:g} differs from IEEE division on '
+                                 f'{walk} values')
+    return out
+
+
 def _max_abs_err(got, want) -> int:
     import torch
     if isinstance(got, tuple):
@@ -198,18 +247,20 @@ def first_chunk_inputs(scanner, pods, device):
         tensors.update(admission_lanes.zero_lanes(scanner._adm, chunk))
     packed, layout = shard_batch(tensors, device)
 
-    _, seen = capture_kernel_inputs(lambda: ev(packed, layout))
-    # one more call, timed: the host clock covers the Python dispatch of
-    # the whole op chain, the CUDA events the device span it enqueued
+    # K1v against its plain version on the chunk's card tensors; the
+    # eager run hands K1c and K1h their captured inputs
+    err, vm_calls, seen, launched = k1v_check(lambda: ev(packed, layout))
+    if err:
+        raise AssertionError(f'K1v differs from the eager walk on the '
+                             f'first chunk: {err}')
+    # one more call, timed: the CUDA events cover the device span it
+    # enqueued (``_host_ms`` below times its Python dispatch)
     if device.type == 'cuda':
         torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    if device.type == 'cuda':
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
     out = ev(packed, layout)
-    host_ms = (time.perf_counter() - t0) * 1e3
     dev_ms = None
     if device.type == 'cuda':
         e1.record()
@@ -219,17 +270,32 @@ def first_chunk_inputs(scanner, pods, device):
     packed_bytes = int(sum(v.numel() * v.element_size()
                            for v in packed.values()))
     out_bytes = int(sum(o.numel() * o.element_size() for o in out))
+    with eager_walk():
+        t1 = time.perf_counter()
+        ev(packed, layout)
+        eager_host_ms = (time.perf_counter() - t1) * 1e3
+        eager_aten = aten_ops(lambda: ev(packed, layout), device)
+    host_ms = _host_ms(lambda: ev(packed, layout), device)
     chunk_stats = {'rows': chunk, 'host_dispatch_ms': host_ms,
+                   'plan_lookup_us': _plan_lookup_us(ev, layout),
                    'device_span_ms': dev_ms, 'device_busy_ms': busy_ms,
+                   'k1v_check': {'max_abs_err': err,
+                                 'capture_launches': launched},
+                   'aten_ops': aten_ops(lambda: ev(packed, layout), device),
+                   'eager_walk': {'host_dispatch_ms': eager_host_ms,
+                                  'aten_ops': eager_aten},
+                   'routes': {str(j): list(r) for j, r in ev.routes.items()},
                    'packed_bytes': packed_bytes, 'out_bytes': out_bytes,
                    'out8_shape': list(out[0].shape),
                    'out32_shape': list(out[1].shape),
                    # K1: the packed input read once, out8/out32 written
-                   # once, over the card's memory rate; K2: the packed
-                   # input over the host link
+                   # once, over the card's memory rate (K1v's own bound,
+                   # of the lanes its bytecode reads, is in the kernels
+                   # line); K2: the packed input over the host link
                    'k1_bound_ms': (packed_bytes + out_bytes) /
                    HBM_BYTES_PER_S * 1e3,
                    'k2_bound_ms': packed_bytes / PCIE_BYTES_PER_S * 1e3}
+    seen['status_vm'] = vm_calls
     return seen, chunk_stats
 
 
@@ -268,19 +334,142 @@ def capture_kernel_inputs(fn, names=('fdet_select', 'wildcard_match',
     return out, seen
 
 
+class eager_walk:
+    """Within the block the evaluator's K1v calls take K1v's plain
+    version, the eager walk, on the same card tensors."""
+
+    def __enter__(self):
+        from kyverno_tpu_torch.ops import kernels
+        self._real = kernels.status_vm
+        kernels.status_vm = lambda packed, program: program.plain(packed)
+        return self
+
+    def __exit__(self, *exc):
+        from kyverno_tpu_torch.ops import kernels
+        kernels.status_vm = self._real
+        return False
+
+
+def k1v_check(fn, names=('fdet_select', 'wildcard_match')):
+    """``fn()`` (one evaluator call) with K1v and then with the eager
+    walk.  Returns the outputs' largest difference, the K1v call's
+    ``status_vm`` arguments and the eager run's kernel inputs (K1c and
+    K1h, whose launches in that run are counted and returned too)."""
+    from kyverno_tpu_torch.ops import kernels
+    got, vm_calls = capture_kernel_inputs(fn, names=('status_vm',))
+    before = dict(kernels.LAUNCHES)
+    with eager_walk():
+        want, seen = capture_kernel_inputs(fn, names=names)
+    launched = {k: kernels.LAUNCHES[k] - before[k] for k in CAPTURE_KERNELS}
+    got = tuple(got) if isinstance(got, (tuple, list)) else (got,)
+    want = tuple(want) if isinstance(want, (tuple, list)) else (want,)
+    return _max_abs_err(got, want), vm_calls['status_vm'], seen, launched
+
+
+def aten_ops(fn, device) -> dict:
+    """aten ops one call of ``fn`` dispatches (torch.profiler, host
+    side), split by the evaluator's ``record_function`` labels (K1v,
+    K1h, K1i, the eager walk) and glue (everything else).  ``top`` counts the ops no other
+    aten op called."""
+    from torch.profiler import ProfilerActivity, profile
+    labels = ('k1v_status_vm', 'k1h_fdet_select', 'k1i_adm_match',
+              'k1_eager_walk')
+    acts = [ProfilerActivity.CPU]
+    with profile(activities=acts) as prof:
+        fn()
+    split = {k: 0 for k in labels + ('glue',)}
+    top = 0
+    for evt in prof.events():
+        if not evt.name.startswith('aten::'):
+            continue
+        where, parent, nested = 'glue', evt.cpu_parent, False
+        while parent is not None:
+            if parent.name.startswith('aten::'):
+                nested = True
+            if parent.name in labels:
+                where = parent.name
+                break
+            parent = parent.cpu_parent
+        split[where] += 1
+        top += not nested
+    return {'total': sum(split.values()), 'top': top, 'by_part': split}
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers, stack and spills of each kernel in a ptxas report."""
+    import re
+    regs = [int(x) for x in re.findall(r'Used (\d+) registers', log)]
+    spills = [int(a) + int(b) for a, b in re.findall(
+        r'(\d+) bytes spill stores, (\d+) bytes spill loads', log)]
+    stack = [int(x) for x in re.findall(r'(\d+) bytes stack frame', log)]
+    return {'registers': regs, 'spill_bytes': spills, 'stack_bytes': stack}
+
+
+def _k1v_bound(program, rows: int):
+    """(ms, bound_by) of K1v: the lanes its bytecode reads, each read
+    once per row, and the unique-space outputs written once, over the
+    card's memory rate; one integer operation per instruction a row
+    executes over the card's non-tensor rate."""
+    out_bytes = rows * (2 * program.n_uniq + 4 * program.n_cols_u)
+    t_bytes = (rows * program.row_bytes + out_bytes) / HBM_BYTES_PER_S
+    t_ops = rows * program.row_insns / CUDA_CORE_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, \
+        'bytes' if t_bytes >= t_ops else 'operations'
+
+
+def measure_k1v(calls, device) -> dict:
+    """K1v on its first captured call (packed buffers, program): the
+    wrapper, its device time and its plain version, against the bound."""
+    from kyverno_tpu_torch.ops import kernels
+    if not calls:
+        raise AssertionError('K1v was never called')
+    packed, program = calls[0]
+    rows = next(iter(packed.values())).shape[0]
+    err = max(_max_abs_err(kernels.status_vm(*c), c[1].plain(c[0]))
+              for c in calls)
+    bound_ms, bound_by = _k1v_bound(program, rows)
+    return {
+        'max_abs_err': err,
+        'ms': _ms(lambda: kernels.status_vm(packed, program), device),
+        'plain_ms': _ms(lambda: program.plain(packed), device, reps=3),
+        'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None,
+        'kernel_device_ms': _device_busy_ms(
+            lambda: kernels.status_vm(packed, program), device,
+            'k1_vm_kernel', reps=20),
+        'shape': {'rows': rows, 'trees': int(program.trees.shape[0]),
+                  'instructions': int(program.code.shape[0]),
+                  'lanes': int(program.lanes.shape[0]),
+                  'row_bytes': program.row_bytes,
+                  'row_insns': program.row_insns,
+                  'depths': program.depths},
+        'calls': len(calls)}
+
+
+#: the CUDA symbol of each hand-written kernel, by its launch counter
+KERNEL_SYMBOLS = {'k1_vm': 'k1_vm_kernel', 'k1c_wildcard': 'wildcard_kernel',
+                  'k1h_fdet_select': 'fdet_select_kernel',
+                  'k3_mutate': 'mutate_kernel',
+                  'k4_status_hist': 'status_hist_kernel'}
+
+
 def _device_busy_ms(fn, device, kernel: str = '', reps: int = 1):
     """Device time from torch.profiler over ``reps`` calls of ``fn``,
     counting device-side kernel events only (a CPU op's own device time
     repeats its kernels').  With ``kernel``, the mean time of one launch
     of the kernels whose name holds it; without, the summed time of all
-    kernels per call.  None off the card or when the profiler sees no
-    such kernel."""
+    kernels per call.  None off the card, when the profiler sees no such
+    kernel, or, for the summed time, when it saw fewer or more launches
+    of a hand-written kernel than its wrapper counted in those calls (a
+    sum that misses launches is no reading; a mean over the launches
+    it saw stays one)."""
     if device.type != 'cuda':
         return None
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from kyverno_tpu_torch.ops import kernels
     torch.cuda.synchronize()
+    before = dict(kernels.LAUNCHES)
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -291,16 +480,55 @@ def _device_busy_ms(fn, device, kernel: str = '', reps: int = 1):
         print(f'chip_smoke: profiler unavailable: {e}', file=sys.stderr)
         return None
     total_us, launches = 0.0, 0
+    seen = dict.fromkeys(KERNEL_SYMBOLS.values(), 0)
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA or \
                 getattr(evt, 'is_user_annotation', False):
             continue
+        for symbol in seen:
+            if symbol in evt.key:
+                seen[symbol] += evt.count
         if kernel in evt.key:
             total_us += evt.self_device_time_total
             launches += evt.count
+    missed = {name: (kernels.LAUNCHES[name] - before.get(name, 0),
+                     seen[symbol])
+              for name, symbol in KERNEL_SYMBOLS.items()
+              if kernels.LAUNCHES[name] - before.get(name, 0) !=
+              seen[symbol]}
+    if missed and not kernel:
+        print(f'chip_smoke: profiler reading dropped, launches counted '
+              f'vs seen: {missed}', file=sys.stderr)
+        return None
     if total_us <= 0:
         return None
     return total_us / 1e3 / (launches if kernel else reps)
+
+
+def _host_ms(fn, device, reps: int = 20) -> float:
+    """Median host milliseconds of one call of ``fn``: its Python
+    dispatch, with the card synchronized before each call."""
+    import torch
+    times = []
+    for _ in range(reps):
+        if device.type == 'cuda':
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    if device.type == 'cuda':
+        torch.cuda.synchronize()
+    return sorted(times)[reps // 2]
+
+
+def _plan_lookup_us(ev, layout, reps: int = 1000) -> float:
+    """Mean host microseconds of the evaluator's per-call layout plan
+    lookup (a cache hit, keyed by the layout's lane signature)."""
+    ev.plan_for(layout)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        ev.plan_for(layout)
+    return (time.perf_counter() - t0) / reps * 1e6
 
 
 def _random_k1h(rel, seed):
@@ -418,9 +646,11 @@ def measure_k1c(calls, device, extra=(), patterns=()):
 
 
 def kernel_phase(seen, device, seed):
-    """Hold K1h and K1c against their plain versions on the card at the
-    scan's first chunk, plus seeded random cases of that shape; returns
-    the per-kernel records (launch counts are filled in later)."""
+    """Hold K1v, K1h and K1c against their plain versions on the card at
+    the scan's first chunk (K1h and K1c at the inputs the eager walk gave
+    them), plus seeded random cases of that shape; returns the
+    per-kernel records (launch counts are filled in later)."""
+    k1v = measure_k1v(seen['status_vm'], device)
     rel = seen['fdet_select'][0][0] if seen['fdet_select'] else None
     k1h = measure_k1h(seen['fdet_select'], device, extra=[
         (r.to(device), f.to(device)) for r, f in _random_k1h(rel, seed)]
@@ -435,11 +665,14 @@ def kernel_phase(seen, device, seed):
     real_pattern = [k1c_calls[0][3]] if k1c_calls else []
     k1c = measure_k1c(k1c_calls, device, extra=extra, patterns=real_pattern + [
         b'*', b'?*', b'a?b*', b'*latest', b'?\xc3*', b'*:*:*', b''])
-    for name, rec in (('K1h', k1h), ('K1c', k1c)):
+    for name, rec in (('K1v', k1v), ('K1h', k1h), ('K1c', k1c)):
         if rec['max_abs_err']:
             raise AssertionError(f'{name} differs from its plain version: '
                                  f'{rec["max_abs_err"]}')
     return [
+        dict(k1v, name='k1_vm', route='cuda',
+             source='kyverno_tpu_torch/csrc/k1_vm.cu',
+             replaces='kyverno_tpu/ops/eval.py:1764', launches=0),
         dict(k1h, name='k1h_fdet_select', route='cuda',
              source='kyverno_tpu_torch/csrc/k1h_fdet_select.cu',
              replaces='kyverno_tpu/ops/eval.py:1797', launches=0),
@@ -506,6 +739,9 @@ def slice_phase(scanner, policies, pods, need=SCAN_KERNELS):
     if missing:
         raise AssertionError(f'kernels never launched on the scan: '
                              f'{missing}')
+    if launches['k1_vm'] != d2h_chunks:
+        raise AssertionError(f'K1v launched {launches["k1_vm"]} times for '
+                             f'{d2h_chunks} chunks (once per K1 call)')
     t1 = time.perf_counter()
     digests = row_digests(rows)
     digest_s = time.perf_counter() - t1
@@ -651,7 +887,7 @@ def mesh_scan_phase(mesh, scanner, policies, pods, slice_digests) -> dict:
     # and encode the same compiled set; a pool forked now would not be
     msc._encoder_pool = scanner._encoder_pool
     try:
-        rec, digests = slice_phase(msc, policies, pods, need=('k1c_wildcard',))
+        rec, digests = slice_phase(msc, policies, pods, need=('k1_vm',))
     finally:
         fleet.disable()
     rec['differing_rows'] = sum(a != b for a, b in zip(digests,
@@ -691,15 +927,41 @@ def mesh_step_phase(mesh, cps, scanner, pods):
     from kyverno_tpu_torch.compiler.ir import N_STATUS_CODES
     from kyverno_tpu_torch.ops import kernels
     from kyverno_tpu_torch.parallel.mesh import distributed_scan_step
+    from kyverno_tpu_torch.ops.eval import build_evaluator
+    from kyverno_tpu_torch.parallel import mesh as mesh_mod
     parts = [pods[i * MESH_STEP_ROWS:(i + 1) * MESH_STEP_ROWS]
              for i in range(MESH_STEPS)]
+    staged = []
+    real_shard = mesh_mod.shard_tensors
+
+    def keep_first(*args, **kwargs):
+        out = real_shard(*args, **kwargs)
+        if not staged:
+            staged.append((_clone(out[0]), out[1]))
+        return out
+
+    mesh_mod.shard_tensors = keep_first
     kernels.reset_launches()
     t0 = time.perf_counter()
-    steps, calls = capture_kernel_inputs(
-        lambda: [distributed_scan_step(cps, mesh, part) for part in parts],
-        names=('status_histogram',))
+    try:
+        steps, calls = capture_kernel_inputs(
+            lambda: [distributed_scan_step(cps, mesh, part)
+                     for part in parts],
+            names=('status_histogram',))
+    finally:
+        mesh_mod.shard_tensors = real_shard
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    if launches['k1_vm'] != MESH_STEPS:
+        raise AssertionError(f'K1v launched {launches["k1_vm"]} times in '
+                             f'{MESH_STEPS} steps (once per K1 call)')
+    # K1v against the eager walk on one step's .raw inputs (program-space
+    # statuses, details and fail details); these launches do not count
+    ev = build_evaluator(cps, mesh.device)
+    raw_err, _vm, _seen, _l = k1v_check(lambda: ev.raw(*staged[0]))
+    if raw_err:
+        raise AssertionError(f'K1v differs from the eager walk on a mesh '
+                             f'step\'s raw inputs: {raw_err}')
     single, _d, _m = scanner.scan_statuses(pods[:MESH_STEPS *
                                                 MESH_STEP_ROWS])
     bad = []
@@ -716,7 +978,7 @@ def mesh_step_phase(mesh, cps, scanner, pods):
         raise AssertionError('; '.join(bad))
     rec = {'steps': MESH_STEPS, 'rows_per_step': MESH_STEP_ROWS,
            'wall_s': wall, 'pods_per_s': MESH_STEPS * MESH_STEP_ROWS / wall,
-           'launches': launches,
+           'launches': launches, 'k1v_raw_max_abs_err': raw_err,
            'summary_total': [int(sm.sum()) for _s, sm in steps]}
     return rec, steps, calls['status_histogram']
 
@@ -837,8 +1099,9 @@ def mesh_phase(policies, pods, scanner, slice_digests, device, seed) -> dict:
                             f'world-size-1 scan')
         if c['leader'] is not (rank == 0):
             problems.append(f'rank {rank}: leader={c["leader"]}')
-        if c['launches']['k4_status_hist'] <= 0:
-            problems.append(f'rank {rank}: K4h never launched')
+        for k in MESH_KERNELS:
+            if c['launches'][k] <= 0:
+                problems.append(f'rank {rank}: {k} never launched')
         if (c['backend'], c['world_size']) != ('gloo', MESH_CHILD_RANKS):
             problems.append(f'rank {rank}: {c["backend"]} x '
                             f'{c["world_size"]}')
@@ -1194,17 +1457,19 @@ def _latency(lat) -> dict:
     return out
 
 
-def admission_kernels(server, oracle, reviews, device) -> dict:
+def admission_kernels(server, oracle, reviews, vev, device) -> dict:
     """Each kernel at the admission path's own shapes.  One sync review
     of each route is served with the kernel wrappers spied on; every
     call's card tensors are held against the plain version, and the
-    first call of each kernel is timed and bounded.  These launches come
-    before the counted passes."""
-    seen = {'fdet_select': [], 'wildcard_match': [], 'k3_mutate': []}
+    first call of each kernel is timed and bounded.  K1v's call is
+    repeated through the validate evaluator ``vev`` with the eager walk
+    in its place: out8 and out32 must be bit-equal, and that run gives
+    K1c its inputs.  These launches come before the counted passes."""
+    seen = {'fdet_select': [], 'status_vm': [], 'k3_mutate': []}
     for route in ('/validate/fail', '/mutate'):
         body = next(b for r, b in reviews if r == route)
         got, calls = capture_kernel_inputs(
-            lambda: server.handle(route, body))
+            lambda: server.handle(route, body), names=tuple(seen))
         if got != oracle.handle(route, body):
             raise AssertionError(f'{route}: the captured review differs '
                                  f'from the host loop')
@@ -1212,16 +1477,42 @@ def admission_kernels(server, oracle, reviews, device) -> dict:
             seen[name].extend(c)
     if not seen['k3_mutate']:
         raise AssertionError('K3 was never called on /mutate')
+    if not seen['status_vm']:
+        raise AssertionError('K1v was never called on /validate/fail')
+    packed, program = seen['status_vm'][0]
+    layout = program.layout
+    err, _vm, eager_seen, launched = k1v_check(lambda: vev(packed, layout))
+    if err:
+        raise AssertionError(f'K1v differs from the eager walk at the '
+                             f'admission shape: {err}')
+    if not eager_seen['wildcard_match'] or launched['k1c_wildcard'] <= 0:
+        raise AssertionError('K1c never launched in the eager walk')
     k3 = [measure_k3(lanes, sites, device)
           for lanes, sites in seen['k3_mutate']]
-    out = {'k1h_fdet_select': measure_k1h(seen['fdet_select'], device),
-           'k1c_wildcard': measure_k1c(seen['wildcard_match'], device),
+    out = {'k1_vm': measure_k1v(seen['status_vm'], device),
+           'k1h_fdet_select': measure_k1h(seen['fdet_select'], device),
+           'k1c_wildcard': measure_k1c(eager_seen['wildcard_match'], device),
            'k3_mutate': dict(k3[0], calls=len(k3), max_abs_err=max(
                c['max_abs_err'] for c in k3))}
     bad = {n: r['max_abs_err'] for n, r in out.items() if r['max_abs_err']}
     if bad:
         raise AssertionError(f'kernels differ from their plain versions at '
                              f'the admission shapes: {bad}')
+    host_ms = _host_ms(lambda: vev(packed, layout), device)
+    with eager_walk():
+        t0 = time.perf_counter()
+        vev(packed, layout)
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        eager_aten = aten_ops(lambda: vev(packed, layout), device)
+    out['k1_call'] = {
+        'rows': next(iter(packed.values())).shape[0],
+        'k1v_check': {'max_abs_err': err, 'capture_launches': launched},
+        'host_dispatch_ms': host_ms,
+        'plan_lookup_us': _plan_lookup_us(vev, layout),
+        'aten_ops': aten_ops(lambda: vev(packed, layout), device),
+        'eager_walk': {'host_dispatch_ms': eager_ms,
+                       'aten_ops': eager_aten},
+        'routes': {str(j): list(r) for j, r in vev.routes.items()}}
     return out
 
 
@@ -1261,6 +1552,11 @@ def admission_phase(seed: int) -> dict:
     if msc is None or not msc.ok:
         raise AssertionError(f'the mutate scanner did not come up: {msc}')
     ready_s = time.perf_counter() - t0
+    vev = handlers._device_scanner(validate)._evaluator
+    eager = {j: r for j, r in vev.routes.items() if r[0] != 'vm'}
+    if eager:
+        raise AssertionError(f'admission pack programs on the eager walk: '
+                             f'{eager}')
     counter = MutateCounter(msc)
     failures = []
     record_failure = handlers._record_key_failure
@@ -1330,7 +1626,7 @@ def admission_phase(seed: int) -> dict:
     try:
         sync = _reviews(2 * SYNC_REVIEWS, seed, 0)
         report['kernels_at_admission'] = admission_kernels(
-            server, oracle, sync, handlers.torch_device)
+            server, oracle, sync, vev, handlers.torch_device)
         report['sync'] = run_pass('sync', sync, 1, range(len(sync)))
         # the card's share of one sync request: its kernels' device time
         # against the request's latency
@@ -1385,6 +1681,9 @@ def admission_phase(seed: int) -> dict:
     if missing:
         problems.append(f'kernels never launched on the admission path: '
                         f'{missing}')
+    if report['launches']['k1_vm'] != report['launches']['k1h_fdet_select']:
+        problems.append(f'K1v and K1h launched {report["launches"]} times: '
+                        f'each runs once per K1 call')
     report['problems'] = problems
     return report
 
@@ -1439,10 +1738,12 @@ def main(argv=None) -> int:
     card = {'nvidia_smi': smi, 'torch': torch.__version__,
             'cuda': torch.version.cuda, 'kernel_build_s': build_s,
             'per_kernel_build_s': built}
+    report['ptxas'] = {n: _build.build_log(n) for n in _build.KERNELS}
+    card['ptxas'] = {n: ptxas_summary(log)
+                     for n, log in report['ptxas'].items()}
     print('card ' + json.dumps(card), flush=True)
     report['card'] = card
     phase_done('card')
-    report['ptxas'] = {n: _build.build_log(n) for n in _build.KERNELS}
 
     policies = smokepack.load_smoke_pack()
     n = max(args.pods, 1)
@@ -1459,16 +1760,28 @@ def main(argv=None) -> int:
     # context, so no child ever inherits one
     scanner._encoder_pool.start()
     device = scanner.device
+    eager = {j: r for j, r in scanner._evaluator.routes.items()
+             if r[0] != 'vm'}
+    if eager:
+        raise AssertionError(f'smoke pack programs on the eager walk: '
+                             f'{eager}')
     try:
         # 2. kernels ------------------------------------------------------
+        report['float64_division'] = float64_division_check(device)
+        print('float64_division ' + json.dumps(report['float64_division']),
+              flush=True)
         seen, chunk_stats = first_chunk_inputs(scanner, pods, device)
         records = kernel_phase(seen, device, args.seed)
         print('kernels ' + json.dumps(
-            {r['name']: dict({k: r[k] for k in (
+            {r['name']: dict({k: r.get(k) for k in (
                 'max_abs_err', 'ms', 'kernel_device_ms', 'plain_ms',
                 'library_ms', 'cases')},
                 bound_us=r['bound_ms'] * 1e3) for r in records}),
               flush=True)
+        print('k1_chunk ' + json.dumps({k: chunk_stats[k] for k in (
+            'rows', 'host_dispatch_ms', 'plan_lookup_us', 'device_span_ms',
+            'device_busy_ms', 'k1v_check', 'aten_ops', 'eager_walk',
+            'routes')}), flush=True)
         report['first_chunk'] = chunk_stats
         phase_done('kernels')
 
@@ -1515,11 +1828,13 @@ def main(argv=None) -> int:
 
     # 7. admission ------------------------------------------------------
     adm = admission_phase(args.seed)
+    print('k1_admission ' + json.dumps(
+        adm['kernels_at_admission']['k1_call']), flush=True)
     print('admission ' + json.dumps(adm), flush=True)
     report['admission'] = adm
     phase_done('admission')
     for r in records:
-        # K1h, K1c and K3 are held at the admission webhook's shapes:
+        # K1v, K1h, K1c and K3 are held at the admission webhook's shapes:
         # its launches, and the times and bound of the kernel at the
         # shapes that path gave it; the chunk-shape numbers stay beside
         r['launches'] = adm['launches'].get(r['name'], 0)
@@ -1536,7 +1851,12 @@ def main(argv=None) -> int:
             'mesh': mesh['launches'].get(r['name'], 0),
             'mesh_2rank': mesh['two_rank']['launches'].get(r['name'], 0),
             'mutate_chunk': mu['launches'].get(r['name'], 0),
-            'admission': adm['launches'].get(r['name'], 0)}
+            'admission': adm['launches'].get(r['name'], 0),
+            # the eager walks that hold K1v against its plain version
+            # (K1c runs only there: on the main path its DP is in K1v)
+            'k1v_checks': chunk_stats['k1v_check']['capture_launches'].get(
+                r['name'], 0) + adm['kernels_at_admission']['k1_call'][
+                    'k1v_check']['capture_launches'].get(r['name'], 0)}
     report['kernels'] = records
     report['phase_s'] = phase_s
     kind = torch.cuda.get_device_name(0)

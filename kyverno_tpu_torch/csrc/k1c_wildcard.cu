@@ -10,10 +10,8 @@
 //     literal  dp = [0] ++ (dp[:-1] & head == c & j < vlen)
 //     matched  = dp[vlen],  vlen = min(str_len, w)
 //
-// Here dp over its w + 1 <= 65 positions lives in two 64-bit words
-// (positions 0..63 in `lo`, position 64 in bit 0 of `hi`): a literal or
-// '?' is (dp & eq_mask) << 1, and '*' is a prefix-OR, every bit at or
-// above the lowest set bit, clipped to position w.  The verdict keeps
+// Here the DP is glob_dp.cuh's two 64-bit words, shared with K1v
+// (k1_vm.cuh), which runs the same DP inside its interpreter.  The verdict keeps
 // the reference's Kleene pair exactly: decidable only inside the window
 // and, for patterns with '?', only over ASCII bytes (a rune is wider
 // than a byte); t = conv & decidable & matched,
@@ -22,16 +20,19 @@
 // Bound on an H100: bytes.  A thread reads its w head bytes, str_len and
 // tag once and writes two bytes; the DP costs about w compares per
 // pattern byte in registers, far under the byte time at these widths.
-// The pattern rides in the kernel's parameter space, so every thread
-// reads it from the constant bank.
+// The pattern rides in the kernel's parameter space (__grid_constant__,
+// so the DP's pointer to it makes no copy): every thread reads it from
+// the constant bank.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "glob_dp.cuh"
+
 namespace {
 
 constexpr int kMaxPattern = 256;
-constexpr int kMaxWidth = 64;
+constexpr int kMaxWidth = GLOB_DP_MAX_W;
 constexpr int kThreads = 256;
 
 struct Pattern {
@@ -46,7 +47,7 @@ __global__ void wildcard_kernel(const uint8_t* __restrict__ head,
                                 uint8_t* __restrict__ t_out,
                                 uint8_t* __restrict__ f_out, long long n,
                                 int w, unsigned conv_tags, int array_tag,
-                                const Pattern pat) {
+                                const __grid_constant__ Pattern pat) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const uint8_t* h = head + i * w;
@@ -56,43 +57,8 @@ __global__ void wildcard_kernel(const uint8_t* __restrict__ head,
 
   const int slen = str_len[i];
   const int vlen = slen < w ? slen : w;
-  // positions j < vlen (vlen <= w <= 64)
-  const uint64_t valid = vlen >= 64 ? ~0ull : (vlen <= 0 ? 0ull : ((1ull << vlen) - 1ull));
-  // dp positions 0..w: `lo` keeps 0..63, `hi` bit 0 is position 64
-  const uint64_t lo_span = w >= 63 ? ~0ull : ((1ull << (w + 1)) - 1ull);
-  const uint64_t hi_span = w >= 64 ? 1ull : 0ull;
-
-  uint64_t lo = 1ull, hi = 0ull;
-  for (int p = 0; p < pat.len; ++p) {
-    const unsigned char c = pat.bytes[p];
-    if (c == '*') {
-      if (lo != 0ull) {
-        lo = ~((lo & (~lo + 1ull)) - 1ull) & lo_span;
-        hi = hi_span;
-      }
-      // lo == 0: the prefix-OR of `hi` alone is `hi`
-    } else {
-      uint64_t m = valid;
-      if (c != '?') {
-        uint64_t eq = 0ull;
-#pragma unroll
-        for (int j = 0; j < kMaxWidth; ++j) eq |= static_cast<uint64_t>(hb[j] == c) << j;
-        m &= eq;
-      }
-      const uint64_t step = lo & m;  // positions < vlen <= w only
-      hi = step >> 63;
-      lo = step << 1;
-    }
-  }
-  const bool matched = vlen >= 64 ? (hi & 1ull) != 0ull
-                                  : (vlen >= 0 && ((lo >> vlen) & 1ull) != 0ull);
-  bool ascii_ok = true;
-  if (pat.has_q) {
-    uint64_t high = 0ull;
-#pragma unroll
-    for (int j = 0; j < kMaxWidth; ++j) high |= static_cast<uint64_t>(hb[j] >= 0x80) << j;
-    ascii_ok = (high & valid) == 0ull;
-  }
+  const bool matched = glob_dp_match(hb, w, vlen, pat.bytes, pat.len);
+  const bool ascii_ok = !pat.has_q || glob_ascii_ok(hb, vlen);
   const int tg = tag[i];
   const bool conv = tg >= 0 && tg < 32 && ((conv_tags >> tg) & 1u) != 0u;
   const bool arrayish = tg == array_tag;

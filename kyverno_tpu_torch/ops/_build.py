@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled on
 first use by ``nvcc`` into its own shared library under
-``kyverno_tpu_torch/_build/`` (named by a digest of the source and the
-flags, so an edited source never loads a stale build), then bound with
-``ctypes``.  ``build_all`` compiles every source at once, one ``nvcc``
+``kyverno_tpu_torch/_build/`` (named by a digest of the source, the
+``csrc/*.cuh`` headers it includes and the flags, so an edited source or
+header never loads a stale build), then bound with ``ctypes``.  ``build_all`` compiles every source at once, one ``nvcc``
 process per file, so the build costs the slowest file, not the sum.
 Nothing here runs at import time.
 """
@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -30,7 +31,12 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 #: kernel name -> (C symbol, ctypes argtypes)
+_P = ctypes.c_void_p
 KERNELS: Dict[str, tuple] = {
+    'k1_vm': ('k1_vm', (
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong),
+        ctypes.c_longlong, _P, _P, _P, _P, _P, _P, ctypes.c_int, _P, _P, _P,
+        ctypes.c_int, ctypes.c_int, _P)),
     'k1h_fdet_select': ('k1h_fdet_select', (
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p)),
@@ -70,9 +76,34 @@ def _source(name: str) -> str:
     return os.path.join(CSRC, f'{name}.cu')
 
 
-def library_path(name: str) -> str:
-    with open(_source(name), 'rb') as f:
-        digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode())
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def sources(name: str, csrc: str = CSRC) -> list:
+    """The source of kernel ``name`` and every header under ``csrc`` it
+    includes, directly or through another header, in include order."""
+    out, todo = [], [os.path.join(csrc, f'{name}.cu')]
+    while todo:
+        path = todo.pop(0)
+        if path in out:
+            continue
+        out.append(path)
+        with open(path, 'rb') as f:
+            for inc in _INCLUDE.findall(f.read()):
+                dep = os.path.join(csrc, inc.decode())
+                if os.path.isfile(dep):
+                    todo.append(dep)
+    return out
+
+
+def library_path(name: str, csrc: str = CSRC) -> str:
+    """The build of ``name``, named by a digest of its source, the
+    headers it includes and the flags."""
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for path in sources(name, csrc):
+        with open(path, 'rb') as f:
+            digest.update(os.path.basename(path).encode() + b'\0' +
+                          f.read())
     return os.path.join(BUILD_DIR, f'{name}-{digest.hexdigest()[:16]}.so')
 
 

@@ -11,13 +11,15 @@ compiled programs, where status is one of
 the host engine, so exactness is never lost.  ``detail`` carries the
 anyPattern index that passed (for the pass-message template).
 
-The program structure is walked once per call: torch runs straight-line
-elementwise ops over ``[R]`` / ``[R, E]`` tensors eagerly on the
-evaluator's device — the policy set is *compiled*, not interpreted
-(reference's per-resource tree walk: pkg/engine/validate/validate.go).
-Two parts run as hand-written CUDA kernels (``ops/kernels.py``): the
-glob DP of ``_View.wildcard_const`` (K1c) and the compact fail-detail
-select of ``evaluate_packed`` (K1h).
+On the card the status trees run as one hand-written CUDA kernel, K1v
+(``ops/vm.py`` lowers each unique tree to bytecode once per pack
+layout; ``csrc/k1_vm.cu`` interprets every tree over the packed batch
+in one launch).  The program walk below — torch ops over ``[R]`` /
+``[R, E]`` tensors, one structure walk per call — is K1v's plain
+version: a CPU batch takes it, and it evaluates the trees K1v does not
+take (``foreach`` trees; ``call.routes``).  Two more parts are kernels
+(``ops/kernels.py``): the walk's glob DP of ``_View.wildcard_const``
+(K1c) and the compact fail-detail select of ``evaluate_packed`` (K1h).
 
 Boolean facts are tracked as Kleene pairs ``(t, f)`` (known-true,
 known-false); any value the encoder could not represent exactly simply
@@ -87,6 +89,17 @@ def _dconst(values: Tuple[int, ...], dtype: torch.dtype,
 def _arange(n: int, device: torch.device) -> torch.Tensor:
     return _cached(('arange', n, device),
                    lambda: torch.arange(n, device=device))
+
+
+def _fdiv(x: torch.Tensor, divisor: float) -> torch.Tensor:
+    """``x`` in float64 over ``divisor``, rounded as IEEE division (the
+    host's ``float(key)``).  The divisor is a device tensor: CUDA
+    divides a tensor by a Python scalar as a product with the scalar's
+    reciprocal, which differs from the quotient in the last bit for
+    about one value in seven (K1v's plain version must not)."""
+    d = _cached(('f64', divisor, x.device), lambda: torch.tensor(
+        divisor, dtype=torch.float64, device=x.device))
+    return x.to(torch.float64) / d
 
 
 def _false(shape, device: torch.device) -> torch.Tensor:
@@ -593,7 +606,7 @@ def _scalar_eq_str_const(sv: _View, value: str) -> _K:
     try:
         fv = float(value)
         mok = sv.lane('milli_ok') & (torch.abs(sv.milli) <= (1 << 53))
-        key_f = sv.milli.to(torch.float64) / 1000.0
+        key_f = _fdiv(sv.milli, 1000.0)
         num_t = sv.numish & mok & (key_f == float(fv))
         num_u = sv.numish & ~mok
     except ValueError:
@@ -857,7 +870,7 @@ def _numeric_tf(t: Dict[str, Any], prefix: str, check: CondCheck) -> _K:
     # within 2^53 (single correctly-rounded division; see encode milli)
     f53 = 1 << 53
     mok = sv.lane('milli_ok') & (torch.abs(sv.milli) <= f53)
-    key_f = sv.milli.to(torch.float64) / 1000.0
+    key_f = _fdiv(sv.milli, 1000.0)
 
     def cmp_float(valid, ok, target_f):
         """valid & host-float comparison against a float64 constant."""
@@ -867,7 +880,7 @@ def _numeric_tf(t: Dict[str, Any], prefix: str, check: CondCheck) -> _K:
     def cmp_duration_pair(valid, ok, vd: int):
         """_duration_pair semantics: int(key*1e9)/1e9 cmp vd/1e9."""
         kd = torch.trunc(key_f * 1e9)
-        return (valid & ok & _cmp_arr(kd / 1e9, float(vd / 1e9), cmp),
+        return (valid & ok & _cmp_arr(_fdiv(kd, 1e9), float(vd / 1e9), cmp),
                 valid & ~ok)
 
     # value-side constants, computed exactly as the host does
@@ -914,7 +927,7 @@ def _numeric_tf(t: Dict[str, Any], prefix: str, check: CondCheck) -> _K:
         pair_vd = None
     if pair_vd is not None:
         nok = sv.lane('nanos_ok') & (torch.abs(sv.nanos) <= f53)
-        kd_f = sv.nanos.to(torch.float64) / 1e9
+        kd_f = _fdiv(sv.nanos, 1e9)
         dur_t = dur_key & nok & _cmp_arr(kd_f, float(pair_vd / 1e9),
                                          cmp)
         dur_u = dur_key & ~nok
@@ -1076,7 +1089,7 @@ def _b_equals(t, prefix: str, key, sv: _View, kind, count, overflow) -> _K:
         else:
             num_t = zeros  # out of the milli lane → never equal exactly
         mok53 = sv.lane('milli_ok') & (torch.abs(sv.milli) <= (1 << 53))
-        key_f = sv.milli.to(torch.float64) / 1000.0
+        key_f = _fdiv(sv.milli, 1000.0)
         str_t = (sv.tag == TAG_STRING) & sv.lane('str_is_float') & mok53 & \
             (key_f == float(key))
         str_u = (sv.tag == TAG_STRING) & sv.lane('str_is_float') & ~mok53
@@ -1098,7 +1111,7 @@ def _b_equals(t, prefix: str, key, sv: _View, kind, count, overflow) -> _K:
                 dur_u = v_dur & ~sv.lane('nanos_ok')
                 mok53 = sv.lane('milli_ok') & \
                     (torch.abs(sv.milli) <= (1 << 53))
-                key_f = sv.milli.to(torch.float64) / 1000.0
+                key_f = _fdiv(sv.milli, 1000.0)
                 vd = torch.trunc(key_f * 1e9)
                 num_t = sv.numish & mok53 & (vd == float(kd))
                 num_u = sv.numish & ~mok53
@@ -1740,26 +1753,52 @@ def build_evaluator(cps: CompiledPolicySet, device=None):
     uniq_groups: List[np.ndarray] = [
         np.flatnonzero(uniq_idx_np == u) for u in range(n_uniq)]
 
+    # K1v (ops/vm.py, csrc/k1_vm.cu) runs every unique tree it can take
+    # in one launch; the route of each tree is decided here, once, from
+    # the IR.  The eager walk below stays as K1v's plain version and
+    # evaluates the trees routed to it (foreach trees).
+    from . import vm
+    vm_info = vm.TreeInfo(cps, uniq_trees, uniq_aux_base, n_uniq, n_cols_u)
+    uniq_routes = vm.route_trees(vm_info, _probe_layout(cps)) \
+        if n_uniq else {}
+    vm_trees = [u for u in range(n_uniq) if uniq_routes[u][0] == 'vm']
+    eager_trees = [u for u in range(n_uniq) if uniq_routes[u][0] != 'vm']
+    uniq_aux_count = [
+        sum(len(unit.children)
+            for unit in (tree.children if tree.kind == 'seq' else (tree,))
+            if unit.kind == 'any')
+        for tree in uniq_trees]
+    import logging
+    logging.getLogger(__name__).info(
+        'evaluator: %d unique trees, %d on K1v, %d on the eager walk %s',
+        n_uniq, len(vm_trees), len(eager_trees),
+        {u: uniq_routes[u][1] for u in eager_trees})
+
     # the program walk keeps per-call memo tables (leaf_cache,
-    # cond_cache, aux_acc, dims) in this closure, so one call runs at a
+    # cond_cache, aux_acc, dims) in this closure, so one walk runs at a
     # time; the ops it enqueues run asynchronously on the device
     eval_lock = threading.Lock()
     consts: Dict[Tuple, torch.Tensor] = {}
 
     @contextlib.contextmanager
-    def _walk():
-        """One evaluator call: holds the lock and makes this evaluator's
-        constant cache the current one."""
-        with eval_lock:
-            token = _CONSTS.set(consts)
-            try:
-                yield
-            finally:
-                _CONSTS.reset(token)
+    def _consts():
+        """Make this evaluator's constant cache the current one."""
+        token = _CONSTS.set(consts)
+        try:
+            yield
+        finally:
+            _CONSTS.reset(token)
 
-    def evaluate_unique(t: Dict[str, torch.Tensor]):
-        """Walk the unique status trees only; returns unique-space
-        (s_u, d_u, fdet_u) with aux channels appended past n_uniq."""
+    @contextlib.contextmanager
+    def _walk():
+        """One eager walk: holds the lock and the constant cache."""
+        with eval_lock, _consts():
+            yield
+
+    def walk_trees(t: Dict[str, torch.Tensor], trees: List[int]):
+        """The eager walk of unique trees ``trees`` (under ``_walk``):
+        (s, d, fd) ``[R, len(trees)]`` and the trees' aux channels in
+        tree order."""
         leaf_cache.clear()
         cond_cache.clear()
         aux_acc.clear()
@@ -1769,39 +1808,132 @@ def build_evaluator(cps: CompiledPolicySet, device=None):
             (arr.shape[1] for name, arr in sorted(t.items())
              if name.endswith('_tag') and arr.ndim >= 2
              and name[0] in 'sa'), 0)
-        cols, dets, fds = [], [], []
-        for tree in uniq_trees:
-            s, d, fd = eval_status(t, tree, 0)
+        cols, dets, fds, aux = [], [], [], []
+        for u in trees:
+            s, d, fd = eval_status(t, uniq_trees[u], 0)
             cols.append(s)
             dets.append(d)
             fds.append(fd)
-        if not cols:
-            ref = t[next(iter(t))] if t else None
-            n = ref.shape[0] if ref is not None else 0
-            dev = ref.device if ref is not None else device
-            z = torch.zeros((n, 0), dtype=torch.int8, device=dev)
-            return z, z, torch.zeros((n, 0), dtype=torch.int32, device=dev)
-        s_u = torch.stack(cols, dim=1)
-        d_u = torch.stack(dets, dim=1)
-        fd_u = torch.stack(fds, dim=1)
-        if aux_acc:
-            fd_u = torch.cat(
-                [fd_u, torch.stack(list(aux_acc), dim=1)], dim=1)
-        return s_u, d_u, fd_u
+            if len(aux_acc) != uniq_aux_count[u]:
+                raise AssertionError(f'tree {u}: {len(aux_acc)} aux '
+                                     f'channels, {uniq_aux_count[u]} '
+                                     f'columns')
+            aux.append(list(aux_acc))
+            aux_acc.clear()
+        return cols, dets, fds, aux
 
-    def evaluate(t: Dict[str, torch.Tensor]):
-        """Program-space evaluation (raw consumers): unique results
-        expanded by a device-side column gather."""
-        with _walk():
-            s_u, d_u, fdet_u = evaluate_unique(t)
-            if n_uniq == 0 or expand_identity:
-                return s_u, d_u, fdet_u
+    def place(out, trees: List[int], walked) -> None:
+        """Write walked trees' columns into unique-space outputs."""
+        s_u, d_u, fd_u = out
+        cols, dets, fds, aux = walked
+        if not trees:
+            return
+        idx = _dconst(tuple(trees), torch.int64, s_u.device)
+        s_u[:, idx] = torch.stack(cols, dim=1)
+        d_u[:, idx] = torch.stack(dets, dim=1)
+        fd_u[:, idx] = torch.stack(fds, dim=1)
+        aux_idx = [n_uniq + uniq_aux_base[u] + c
+                   for u in trees for c in range(uniq_aux_count[u])]
+        if aux_idx:
+            fd_u[:, _dconst(tuple(aux_idx), torch.int64, s_u.device)] = \
+                torch.stack(
+                [a for per_tree in aux for a in per_tree], dim=1)
+
+    def outputs(rows: int, dev, zero: bool):
+        make = torch.zeros if zero else torch.empty
+        return (make((rows, n_uniq), dtype=torch.int8, device=dev),
+                make((rows, n_uniq), dtype=torch.int8, device=dev),
+                make((rows, n_cols_u), dtype=torch.int32, device=dev))
+
+    class LayoutPlan:
+        """What a call needs of one pack layout: K1v's program (None
+        without K1v trees), and the split of the lanes into the special
+        ones (row validity, match plane, admission lanes), which no
+        status tree reads, and the status trees' own."""
+
+        def __init__(self, layout):
+            special = {'__rowvalid__', '__match__', *ADM_LANES}
+            self.special = [(name, e) for name, e in layout.items()
+                            if name in special]
+            self.status_layout = {name: e for name, e in layout.items()
+                                  if name not in special}
+            self.program = vm.lower(vm_info, vm_trees, layout) \
+                if vm_trees else None
+            if self.program is not None:
+                def plain(packed, plan=self):
+                    # K1v's plain version: the eager walk of its trees
+                    t = plan.status_lanes(packed)
+                    ref = next(iter(packed.values()))
+                    out = outputs(ref.shape[0], ref.device,
+                                  bool(eager_trees))
+                    with _walk():
+                        place(out, vm_trees, walk_trees(t, vm_trees))
+                    return out
+                self.program.plain = plain
+
+        def lanes(self, packed) -> Dict[str, torch.Tensor]:
+            """The special lanes of a packed batch."""
+            return {name: packed[g][:, off:off + width].reshape(
+                (packed[g].shape[0],) + tuple(tail))
+                for name, (g, off, width, tail) in self.special}
+
+        def status_lanes(self, packed) -> Dict[str, torch.Tensor]:
+            """The lane dict the eager walk reads."""
+            t = unpack_batch(packed, self.status_layout)
+            if not t:
+                # slot-free policy sets (e.g. pure deny-by-subject rules
+                # — exactly the admission-lane vocabulary) still need one
+                # reference array for constant-tree row shapes
+                rowvalid = self.lanes(packed).get('__rowvalid__')
+                if rowvalid is not None:
+                    t = {'__rowref__': rowvalid}
+            return t
+
+    # one plan per pack layout signature: its (lane, entry) pairs in
+    # order (pack_batch lays out one signature in one order)
+    plans: Dict[Any, Any] = {}
+    plans_lock = threading.Lock()
+
+    def plan_for(layout) -> LayoutPlan:
+        sig = tuple(layout.items())
+        plan = plans.get(sig)
+        if plan is not None:
+            return plan
+        with plans_lock:
+            plan = plans.get(sig)
+            if plan is None:
+                if len(plans) > 128:
+                    plans.clear()
+                plan = plans[sig] = LayoutPlan(layout)
+        return plan
+
+    def evaluate_unique(packed: Dict[str, torch.Tensor], layout):
+        """Unique-space (s_u, d_u, fdet_u), aux channels past n_uniq:
+        K1v for its trees, then the eager walk for the rest."""
+        ref = next(iter(packed.values()))
+        rows, dev = ref.shape[0], ref.device
+        if vm_trees:
+            with torch.profiler.record_function('k1v_status_vm'):
+                out = kernels.status_vm(packed, plan_for(layout).program)
+        else:
+            out = outputs(rows, dev, True)
+        if eager_trees:
+            t = plan_for(layout).status_lanes(packed)
+            with torch.profiler.record_function('k1_eager_walk'), _walk():
+                place(out, eager_trees, walk_trees(t, eager_trees))
+        return out
+
+    def evaluate(packed: Dict[str, torch.Tensor], layout):
+        """Program-space evaluation (raw consumers: the mesh paths):
+        unique results expanded by a device-side column gather."""
+        s_u, d_u, fdet_u = evaluate_unique(packed, layout)
+        if n_uniq == 0 or expand_identity:
+            return s_u, d_u, fdet_u
+        with _consts():
             pid = _dconst(tuple(uniq_idx_list), torch.int64, s_u.device)
-            statuses = s_u[:, pid]
-            details = d_u[:, pid]
-            fdet = fdet_u[:, _dconst(tuple(expand_idx_np.tolist()),
-                                     torch.int64, s_u.device)]
-            return statuses, details, fdet
+            fid = _dconst(tuple(expand_idx_np.tolist()), torch.int64,
+                          s_u.device)
+        return s_u[:, pid], d_u[:, pid], fdet_u[:, fid]
 
     #: fixed per-row budget of fail-detail cells shipped back to the
     #: host.  fdet is most of the chunk's device→host bytes; only
@@ -1813,53 +1945,47 @@ def build_evaluator(cps: CompiledPolicySet, device=None):
     def evaluate_packed(packed: Dict[str, torch.Tensor],
                         layout: Dict[str, Tuple[str, int, int,
                                                 Tuple[int, ...]]]):
-        t = unpack_batch(packed, layout)
+        if '__match__' not in layout:
+            return evaluate(packed, layout)
         # ragged batches: rows past the live row count are canonical-
         # capacity padding.  Per-row outputs for them are sliced off on
         # the host; everything that selects or reduces ACROSS rows
         # masks them here so every occupancy gives bit-identical output.
-        rowvalid = t.pop('__rowvalid__', None)
-        match = t.pop('__match__', None)
-        adm_in = {name: t.pop(name) for name in ADM_LANES if name in t}
-        if not t and rowvalid is not None:
-            # slot-free policy sets (e.g. pure deny-by-subject rules —
-            # exactly the admission-lane vocabulary) still need one
-            # reference array for constant-tree row shapes
-            t = {'__rowref__': rowvalid}
-        if match is None:
-            return evaluate(t)
+        lanes = plan_for(layout).lanes(packed)
+        rowvalid = lanes.get('__rowvalid__')
+        match = lanes['__match__']
         # compact form, all in UNIQUE space (match arrives pre-folded to
         # [R, n_uniq]): ship (statuses|details) as one int8 buffer and
         # the (matched & FAIL) fail-detail cells as [cols | fds]; the
         # host expands duplicates with one gather (expand_compact)
-        with _walk():
-            s_u, d_u, fdet_u = evaluate_unique(t)
-            rel_main = (s_u == FAIL) & (match != 0)
-            if rowvalid is not None:
-                rel_main = rel_main & (rowvalid != 0)[:, None]
-            parts = [rel_main]
-            for u, cnt in uniq_any:
-                parts.append(rel_main[:, u:u + 1].expand(s_u.shape[0],
-                                                         cnt))
-            rel = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
-            c = fdet_u.shape[1]
-            # fixed budget: rows overflowing it degrade to exact host
-            # materialization, never wrong answers.  The first k
-            # relevant columns and their fail details come from one
-            # kernel (K1h).
-            k = min(fdet_k, c)
+        s_u, d_u, fdet_u = evaluate_unique(packed, layout)
+        rel_main = (s_u == FAIL) & (match != 0)
+        if rowvalid is not None:
+            rel_main = rel_main & (rowvalid != 0)[:, None]
+        parts = [rel_main]
+        for u, cnt in uniq_any:
+            parts.append(rel_main[:, u:u + 1].expand(s_u.shape[0], cnt))
+        rel = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        c = fdet_u.shape[1]
+        # fixed budget: rows overflowing it degrade to exact host
+        # materialization, never wrong answers.  The first k relevant
+        # columns and their fail details come from one kernel (K1h).
+        k = min(fdet_k, c)
+        with torch.profiler.record_function('k1h_fdet_select'):
             out32 = kernels.fdet_select(rel.contiguous(),
                                         fdet_u.contiguous(), k)
-            out8 = torch.cat([s_u, d_u], dim=1)
-            if adm_table is not None and len(adm_in) == len(ADM_LANES):
-                # per-row admission match for eligible programs, decided
-                # on device and shipped back as extra int8 columns (the
-                # host replaces its conservative match upper bound with
-                # these before assembly; rows the encoder marked
-                # non-valid are ignored there)
+        out8 = torch.cat([s_u, d_u], dim=1)
+        adm_in = {name: lanes[name] for name in ADM_LANES if name in lanes}
+        if adm_table is not None and len(adm_in) == len(ADM_LANES):
+            # per-row admission match for eligible programs, decided
+            # on device and shipped back as extra int8 columns (the
+            # host replaces its conservative match upper bound with
+            # these before assembly; rows the encoder marked
+            # non-valid are ignored there)
+            with torch.profiler.record_function('k1i_adm_match'), _consts():
                 adm = _adm_match_graph(adm_table, adm_in).to(torch.int8)
-                out8 = torch.cat([out8, adm], dim=1)
-            return out8, out32
+            out8 = torch.cat([out8, adm], dim=1)
+        return out8, out32
 
     def call(packed: Dict[str, Any],
              layout: Dict[str, Tuple[str, int, int, Tuple[int, ...]]]):
@@ -1869,6 +1995,10 @@ def build_evaluator(cps: CompiledPolicySet, device=None):
             return evaluate_packed(packed, layout)
 
     call.raw = evaluate
+    #: {program index: ('vm' | 'eager', reason)}: which of K1v and the
+    #: eager walk evaluates each program's unique tree
+    call.routes = {j: uniq_routes[u] for j, u in enumerate(uniq_idx_list)}
+    call.plan_for = plan_for
     call.any_meta = any_meta
     call.n_cols = n_cols
     call.n_programs = len(cps.programs)
@@ -1894,6 +2024,14 @@ def _stamp_coverage(st) -> None:
     ratio = coverage.last_ratio()
     if ratio is not None:
         st.set_attribute('device_coverage_ratio', round(ratio, 4))
+
+
+def _probe_layout(cps: CompiledPolicySet):
+    """The pack layout of a one-row batch of ``cps`` at the encoder's
+    smallest widths: every lane the status trees can read, for the
+    build-time routing of ``ops/vm.py``."""
+    from ..compiler.encode import encode_batch
+    return pack_batch(encode_batch([], cps, padded_n=1).tensors())[1]
 
 
 def fold_match_unique(mm: np.ndarray, evaluator) -> np.ndarray:

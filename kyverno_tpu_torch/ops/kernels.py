@@ -1,15 +1,19 @@
 """Wrappers of the hand-written CUDA kernels, and their plain versions.
 
-Two parts of the evaluator (``ops/eval.py``), the device mutate
-decision (``mutate/kernel.py``) and the sharded step's histogram
-(``parallel/mesh.py``) run as kernels written for Hopper
-(``csrc/*.cu``, built by ``ops/_build.py``):
+The evaluator (``ops/eval.py``), the device mutate decision
+(``mutate/kernel.py``) and the sharded step's histogram
+(``parallel/mesh.py``) run as kernels written for Hopper (``csrc/*.cu``,
+built by ``ops/_build.py``):
 
+* K1v ``status_vm`` — every unique status tree of a policy set over a
+  packed batch, as one launch of a bytecode interpreter (the bytecode
+  from ``ops/vm.py``); its plain version is the evaluator's eager walk;
 * K1h ``fdet_select`` — the compact fail-detail select of
   ``evaluate_packed``: the first k relevant columns of each row and
   their fail details;
 * K1c ``wildcard_match`` — the glob DP of ``_View.wildcard_const`` and
-  its Kleene verdict;
+  its Kleene verdict (the eager walk's; inside K1v the same DP runs
+  from ``csrc/glob_dp.cuh``);
 * K3 ``k3_mutate`` — per (resource, rule) of a lowered mutate set: the
   edit bitmask, the status and the first-fault reason;
 * K4h ``status_histogram`` — the per-rule verdict histogram of the
@@ -33,8 +37,9 @@ from ..compiler.ir import (TAG_ARRAY, TAG_BOOL, TAG_FLOAT, TAG_INT,
                            TAG_MISSING, TAG_STRING)
 
 #: launches per kernel since the last ``reset_launches``
-LAUNCHES: Dict[str, int] = {'k1h_fdet_select': 0, 'k1c_wildcard': 0,
-                             'k3_mutate': 0, 'k4_status_hist': 0}
+LAUNCHES: Dict[str, int] = {'k1_vm': 0, 'k1h_fdet_select': 0,
+                             'k1c_wildcard': 0, 'k3_mutate': 0,
+                             'k4_status_hist': 0}
 
 #: widest byte window and longest pattern the K1c kernel takes
 #: (``STR_LEN`` = 64 bounds every ``str_head`` lane)
@@ -66,6 +71,67 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
         return True
     _check(dev.type == 'cuda', f'unsupported device {dev}')
     return False
+
+
+# ---------------------------------------------------------------------------
+# K1v: the status-program interpreter
+
+def status_vm(packed: Dict[str, torch.Tensor], program
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(s_u int8 [R, n_uniq], d_u int8 [R, n_uniq], fdet_u int32
+    [R, n_cols_u])`` of the packed batch ``packed`` (``pack_batch``'s
+    ``pk_*`` buffers, ``[R, W]`` each) under ``program``, K1v's bytecode
+    for one (evaluator, layout) (``ops/vm.py`` ``Program``).  The
+    columns of the program's trees are written; those of trees routed
+    to the eager walk are zero."""
+    from .vm import BUFFERS
+    _check(bool(packed), 'packed holds no buffer')
+    ts = list(packed.values())
+    rows = ts[0].shape[0]
+    for t in ts:
+        _check(t.dim() == 2 and t.shape[0] == rows,
+               f'packed buffers must be [{rows}, W], got {tuple(t.shape)}')
+    if _on_cpu(*ts):
+        return program.plain(packed)
+    dtypes = {'uint8': torch.uint8, 'int8': torch.int8, 'bool': torch.bool,
+              'int32': torch.int32, 'int64': torch.int64}
+    ptrs, widths = [], []
+    for name, dt in BUFFERS:
+        t = packed.get(name)
+        if t is None:
+            ptrs.append(None)
+            widths.append(0)
+            continue
+        _check(t.dtype == dtypes[dt], f'{name} must be {dt}, got {t.dtype}')
+        _check(t.is_contiguous(), 'status_vm takes contiguous buffers')
+        ptrs.append(t.data_ptr())
+        widths.append(t.shape[1])
+    dev = ts[0].device
+    make = torch.empty if len(program.vm_cols) == program.n_uniq \
+        else torch.zeros
+    s_u = make((rows, program.n_uniq), dtype=torch.int8, device=dev)
+    d_u = make((rows, program.n_uniq), dtype=torch.int8, device=dev)
+    fd_u = make((rows, program.n_cols_u), dtype=torch.int32, device=dev)
+    n_trees = program.trees.shape[0]
+    if rows == 0 or n_trees == 0:
+        return s_u, d_u, fd_u
+    import ctypes
+    from . import _build
+    lib = _build.load('k1_vm')
+    tab = program.device_tables(dev)
+    with torch.cuda.device(dev):
+        rc = lib.k1_vm((ctypes.c_void_p * 5)(*ptrs),
+                       (ctypes.c_longlong * 5)(*widths), rows,
+                       tab['code'].data_ptr(), tab['lanes'].data_ptr(),
+                       tab['i64'].data_ptr(), tab['f64'].data_ptr(),
+                       tab['bytes'].data_ptr(), tab['trees'].data_ptr(),
+                       n_trees, s_u.data_ptr(), d_u.data_ptr(),
+                       fd_u.data_ptr(), program.n_uniq, program.n_cols_u,
+                       _stream(ts[0]))
+    if rc != 0:
+        raise RuntimeError(f'k1_vm launch failed: CUDA error {rc}')
+    LAUNCHES['k1_vm'] += 1
+    return s_u, d_u, fd_u
 
 
 # ---------------------------------------------------------------------------

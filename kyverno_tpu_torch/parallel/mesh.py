@@ -135,20 +135,21 @@ def build_sharded_evaluator(cps: CompiledPolicySet, mesh: Mesh,
     """
     from ..compiler.ir import N_STATUS_CODES
     from ..ops import kernels
-    from ..ops.eval import build_evaluator, unpack_batch
+    from ..ops.eval import build_evaluator
     evaluator = build_evaluator(cps, mesh.device)
     n_codes = N_STATUS_CODES
 
     def run(tensors, layout):
         # the layout rides with each call and the evaluator serializes
-        # its own walks (its eval lock), so no lock is taken here
-        t = unpack_batch(tensors, layout)
+        # its own eager walks, so no lock is taken here.  K1v reads the
+        # packed buffers themselves (evaluator.raw's packed entry)
+        statuses, details, _fdet = evaluator.raw(tensors, layout)
         # the encoder's row-validity lane: canonical-capacity padding
         # rows must not count in the cross-shard verdict summary
-        rowmask = t.pop('__rowvalid__', None)
+        rowmask = evaluator.plan_for(layout).lanes(tensors).get(
+            '__rowvalid__')
         # fdet is dropped here: the distributed summary path never
-        # synthesizes messages (eager torch still computes it)
-        statuses, details, _fdet = evaluator.raw(t)
+        # synthesizes messages (K1v still computes it)
         # per-rule verdict histogram over the status codes (K4h), then
         # the partial sums all-reduced over the mesh
         rowvalid = rowmask.contiguous().view(torch.uint8) \

@@ -54,7 +54,8 @@ def spec_digest(resource: dict) -> str:
 #: and compiler, the hand-written kernels and their wrappers, then the
 #: scan-assembly and report-mapping layers that turn device cells into
 #: result dicts
-ENGINE_SOURCES = ('ops/eval.py', 'ops/kernels.py',
+ENGINE_SOURCES = ('ops/eval.py', 'ops/kernels.py', 'ops/vm.py',
+                  'csrc/k1_vm.cu', 'csrc/k1_vm.cuh', 'csrc/glob_dp.cuh',
                   'csrc/k1h_fdet_select.cu', 'csrc/k1c_wildcard.cu',
                   'csrc/k3_mutate.cu', 'csrc/k4_status_hist.cu',
                   'compiler/compile.py',

@@ -236,11 +236,12 @@ def test_engine_rev_digests_the_ports_own_sources():
     from kyverno_tpu_torch.verdictcache import keys
     for rel in keys.ENGINE_SOURCES:
         assert os.path.isfile(os.path.join(PORT, rel)), rel
-    # a kernel change is an engine change: every CUDA source and the
-    # wrappers are digested
+    # a kernel change is an engine change: every CUDA source and header,
+    # the wrappers and K1v's lowering are digested
     cu = {f'csrc/{f}' for f in os.listdir(os.path.join(PORT, 'csrc'))
-          if f.endswith('.cu')}
-    assert cu and cu | {'ops/kernels.py'} <= set(keys.ENGINE_SOURCES)
+          if f.endswith(('.cu', '.cuh'))}
+    assert {'csrc/k1_vm.cuh', 'csrc/glob_dp.cuh'} <= cu
+    assert cu | {'ops/kernels.py', 'ops/vm.py'} <= set(keys.ENGINE_SOURCES)
     rev = keys.engine_rev()
     assert len(rev) == 16 and rev != jax_keys.engine_rev()
     assert provenance._engine_rev() == rev
@@ -276,10 +277,39 @@ def test_verbatim_copies_equal_their_originals(rel):
 def test_port_has_no_module_missing_from_the_layout():
     """Every module of the port either mirrors a JAX-package module at
     the same relative path or is one of the port's own."""
-    own = {'device.py', 'smokepack.py', 'ops/kernels.py', 'ops/_build.py'}
+    own = {'device.py', 'smokepack.py', 'ops/kernels.py', 'ops/_build.py',
+           'ops/vm.py'}
     extra = [rel for rel, _p in _port_sources()
              if not os.path.exists(os.path.join(REF, rel)) and rel not in own]
     assert extra == []
+
+
+def test_vm_lowering_imports_neither_jax_nor_the_jax_package():
+    path = os.path.join(PORT, 'ops', 'vm.py')
+    mods = list(_imports(path))
+    assert mods and not [m for m in mods if _blocked(m)]
+
+
+def test_library_path_digests_included_headers(tmp_path):
+    """An edit to a header a kernel includes, directly or through
+    another header, names a new build; an edit to an unrelated header
+    does not."""
+    import shutil
+    from kyverno_tpu_torch.ops import _build
+    csrc = tmp_path / 'csrc'
+    shutil.copytree(os.path.join(PORT, 'csrc'), csrc)
+    assert [os.path.basename(p) for p in _build.sources('k1_vm', str(csrc))] \
+        == ['k1_vm.cu', 'k1_vm.cuh', 'glob_dp.cuh']
+    before = {n: _build.library_path(n, str(csrc)) for n in _build.KERNELS}
+    with open(csrc / 'glob_dp.cuh', 'a') as f:
+        f.write('\n// edited\n')
+    after = {n: _build.library_path(n, str(csrc)) for n in _build.KERNELS}
+    changed = {n for n in _build.KERNELS if before[n] != after[n]}
+    assert changed == {'k1_vm', 'k1c_wildcard'}
+    with open(csrc / 'k1_vm.cuh', 'a') as f:
+        f.write('\n// edited\n')
+    again = {n: _build.library_path(n, str(csrc)) for n in _build.KERNELS}
+    assert {n for n in _build.KERNELS if after[n] != again[n]} == {'k1_vm'}
 
 
 def test_host_helpers_of_the_evaluator_are_byte_identical():

@@ -286,3 +286,74 @@ def test_k3_cuda_kernel_matches_plain(cuda):
     got = kernels.k3_mutate(empty.stage(lanes), empty.site_tensors())
     assert kernels.LAUNCHES['k3_mutate'] == before
     assert all(not o.any() for o in got)
+
+
+# ---------------------------------------------------------------------------
+# K1v (its source is held against JAX on the CPU in tests/test_torch_vm.py)
+
+def test_k1v_cpu_wrapper_takes_plain_and_counts_nothing():
+    from test_torch_reference import make_resources
+    from test_torch_eval import _evaluators
+    from kyverno_tpu_torch.compiler.encode import encode_batch
+    from kyverno_tpu_torch.ops.eval import shard_batch
+    _jc, _jev, tc, tev = _evaluators('smoke')
+    packed, layout = shard_batch(encode_batch(make_resources('smoke', 9), tc,
+                                              padded_n=16).tensors(), 'cpu')
+    program = tev.plan_for(layout).program
+    before = kernels.LAUNCHES['k1_vm']
+    got = kernels.status_vm(packed, program)
+    assert kernels.LAUNCHES['k1_vm'] == before
+    for g, w in zip(got, program.plain(packed)):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError):
+        kernels.status_vm({}, program)
+    with pytest.raises(ValueError):
+        kernels.status_vm({'pk_int8': packed['pk_int8'],
+                           'pk_bool': packed['pk_bool'][:3]}, program)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', ['compiler', 'conditions', 'pss', 'smoke',
+                                  'wildcard_keys'])
+def test_k1v_cuda_kernel_matches_eager_walk(name, cuda):
+    """K1v on the card against its plain version (the eager walk on the
+    same card tensors), on encoded rows and on fuzzed lanes: bit-equal."""
+    from test_torch_reference import load_pack, make_resources
+    from test_torch_vm import _fuzz_packed
+    from kyverno_tpu_torch.compiler.compile import compile_policies
+    from kyverno_tpu_torch.compiler.encode import encode_batch
+    from kyverno_tpu_torch.ops.eval import build_evaluator, pack_batch
+    _jp, tp = load_pack(name)
+    tc = compile_policies(tp)
+    ev = build_evaluator(tc, cuda)
+    assert {r[0] for r in ev.routes.values()} == {'vm'}
+    packed, layout = pack_batch(encode_batch(make_resources(name, 300), tc,
+                                             padded_n=320).tensors())
+    program = ev.plan_for(layout).program
+    for seed, bufs in enumerate([packed] + [_fuzz_packed(packed, layout, s)
+                                            for s in range(3)]):
+        card = {k: torch.from_numpy(np.ascontiguousarray(v)).to(cuda)
+                for k, v in bufs.items()}
+        before = kernels.LAUNCHES['k1_vm']
+        got = kernels.status_vm(card, program)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES['k1_vm'] == before + 1
+        want = program.plain(card)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w.cpu()), (name, seed)
+
+
+@pytest.mark.cuda
+def test_eager_float64_division_is_ieee_on_the_card(cuda):
+    """The eager walk's float64 quotients (``float(key)`` of a milli or
+    nanos lane) on the card equal the host's IEEE division: CUDA takes
+    a Python-scalar divisor as a product with its reciprocal, so the
+    walk divides by a device scalar (``ops/eval.py`` ``_fdiv``)."""
+    from kyverno_tpu_torch.ops.eval import _fdiv
+    x = torch.cat([torch.arange(-200000, 200001, dtype=torch.int64),
+                   torch.randint(-(1 << 53), 1 << 53, (1 << 16,),
+                                 generator=torch.Generator().manual_seed(0))])
+    for div in (1000.0, 1e9):
+        want = x.to(torch.float64) / div
+        got = _fdiv(x.to(cuda), div).cpu()
+        assert torch.equal(got, want), div
