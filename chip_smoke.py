@@ -35,9 +35,10 @@ CUDA card and checks it, in phases that each print one line:
 4. ``mesh``, ``mesh_step``, ``mesh_2rank``: the multi-device scan
    (``parallel/mesh.py``) on ``torch.distributed``.  (a) An NCCL group
    of world size 1 (rendezvous through a file store; no network), and
-   ``BatchScanner(policies, mesh=...).scan_report_results`` over the same
-   Pods: every row's digest must equal the slice's, the first 2,000 rows
-   and the last chunk are held against the host ``Engine``, and the
+   ``BatchScanner(policies, mesh=...).scan_report_results`` over the
+   first 3 chunks + 1 of the same Pods (49,153): every row's digest must
+   equal the slice's, the first 2,000 rows and the last chunk are held
+   against the host ``Engine``, and the
    fleet telemetry reports the shard wall and collective seconds.  (b)
    ``distributed_scan_step`` over three steps of 16,384 Pods on that
    group: each summary must equal a numpy histogram of its statuses, the
@@ -78,10 +79,26 @@ CUDA card and checks it, in phases that each print one line:
    same bytes, the phase also counts the serving path of each validate
    decision (decision provenance), the rows the mutate scanner
    dispatched and the breaker failures, and fails unless the device
-   served (see ``admission_phase``).
+   served (see ``admission_phase``).  The card's busy time per sync
+   request is the sum of CUDA-event times around each kernel wrapper
+   call the request made (K1v and K1h; K3 on /mutate), over 5 requests.
+8. ``restricted_chunk``, ``restricted_slice``, ``restricted_admission``:
+   the restricted configuration (``smokepack.load_restricted_pack``: the
+   smoke pack, Kyverno's restricted chart's ``disallow-capabilities-
+   strict`` foreach rules and the admission-lanes pack) over 100,000
+   ``make_restricted_pod`` Pods.  K1v, which now runs the ``foreach``
+   trees and the per-row admission match (K1i), is held bit-equal to its
+   plain version (the eager walk and ``_adm_match_graph``) on the first
+   chunk with the admission lanes of ``ADMISSIONS`` tuples, with the
+   aten ops and host dispatch of both; ``_adm_match_graph`` must run no
+   aten op on the card.  Then the scan (rows held against the host
+   engine as in phase 3) and the admission webhook in Enforce (500 sync
+   and 8,000 batch /validate/fail reviews from the ``ADMISSIONS`` users,
+   roles resolved from the same table by both handlers; checks as in
+   phase 7).
 
-Every phase fails if a program of the smoke or admission pack is routed
-to the eager walk.  Then the seconds of each phase, one JSON line of
+Every phase fails if a program of its packs is routed to the eager
+walk.  Then the seconds of each phase, one JSON line of
 per-kernel numbers (launches on the path that runs each kernel: the
 admission path for K1v, K1h and K3, with the error, times and bound at
 the admission shapes, the chunk-shape numbers being in the report; K1c,
@@ -224,10 +241,12 @@ def _max_abs_err(got, want) -> int:
 # ---------------------------------------------------------------------------
 # phase 2: the kernels against their plain versions
 
-def first_chunk_inputs(scanner, pods, device):
+def first_chunk_inputs(scanner, pods, device, adm_rows=None):
     """Run the evaluator once over the scan's first chunk and keep the
     tensors each kernel wrapper was given, plus the chunk's device and
-    host times."""
+    host times.  With ``adm_rows`` (one admission tuple per Pod) the
+    chunk carries their admission lanes, the resource-shape atoms
+    decided by the scanner's host helpers, instead of zero lanes."""
     import numpy as np
     import torch
     from kyverno_tpu_torch.api.unstructured import Resource
@@ -238,13 +257,22 @@ def first_chunk_inputs(scanner, pods, device):
     part = pods[:chunk]
     ev = scanner._evaluator
     tensors = dict(encode_batch(part, scanner.cps, padded_n=chunk).tensors())
-    cm = scanner.match_matrix(part, [Resource(r) for r in part])
+    wrapped = [Resource(r) for r in part]
+    cm = scanner.match_matrix(part, wrapped)
     mm_u = fold_match_unique((cm & scanner._dev_mask).astype(np.uint8), ev)
     mm = np.zeros((chunk, mm_u.shape[1]), np.uint8)
     mm[:len(part)] = mm_u
     tensors['__match__'] = mm
     if scanner._adm is not None:
-        tensors.update(admission_lanes.zero_lanes(scanner._adm, chunk))
+        lanes = admission_lanes.zero_lanes(scanner._adm, chunk)
+        if adm_rows is not None:
+            plan = admission_lanes.encode_rows(scanner._adm,
+                                               adm_rows[:len(part)])
+            for name, lane in plan.lanes.items():
+                lanes[name][:len(part)] = lane
+            lanes['__admres__'][:len(part)] = \
+                scanner._adm_res_atoms(part, wrapped)
+        tensors.update(lanes)
     packed, layout = shard_batch(tensors, device)
 
     # K1v against its plain version on the chunk's card tensors; the
@@ -407,10 +435,11 @@ def ptxas_summary(log: str) -> dict:
 
 def _k1v_bound(program, rows: int):
     """(ms, bound_by) of K1v: the lanes its bytecode reads, each read
-    once per row, and the unique-space outputs written once, over the
-    card's memory rate; one integer operation per instruction a row
-    executes over the card's non-tensor rate."""
-    out_bytes = rows * (2 * program.n_uniq + 4 * program.n_cols_u)
+    once per row, and the unique-space and admission outputs written
+    once, over the card's memory rate; one integer operation per
+    instruction a row executes over the card's non-tensor rate."""
+    out_bytes = rows * (2 * program.n_uniq + 4 * program.n_cols_u +
+                        program.n_adm)
     t_bytes = (rows * program.row_bytes + out_bytes) / HBM_BYTES_PER_S
     t_ops = rows * program.row_insns / CUDA_CORE_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, \
@@ -436,7 +465,8 @@ def measure_k1v(calls, device) -> dict:
         'kernel_device_ms': _device_busy_ms(
             lambda: kernels.status_vm(packed, program), device,
             'k1_vm_kernel', reps=20),
-        'shape': {'rows': rows, 'trees': int(program.trees.shape[0]),
+        'shape': {'rows': rows, 'entries': int(program.trees.shape[0]),
+                  'adm_cols': program.n_adm,
                   'instructions': int(program.code.shape[0]),
                   'lanes': int(program.lanes.shape[0]),
                   'row_bytes': program.row_bytes,
@@ -503,6 +533,44 @@ def _device_busy_ms(fn, device, kernel: str = '', reps: int = 1):
     if total_us <= 0:
         return None
     return total_us / 1e3 / (launches if kernel else reps)
+
+
+def request_kernel_ms(fn, reps: int = 5,
+                      names=('status_vm', 'fdet_select', 'k3_mutate')):
+    """Device milliseconds of the hand-written kernels one call of
+    ``fn`` launches, mean over ``reps`` calls: each call of a kernel
+    wrapper ``names`` is bracketed by CUDA events on the current stream
+    (as ``capture_kernel_inputs`` spies on them), and the events' times
+    are summed once the card is synchronized.  Also the wrappers' calls
+    per call of ``fn``."""
+    import torch
+    from kyverno_tpu_torch.ops import kernels
+    real = {name: getattr(kernels, name) for name in names}
+    marks = []
+
+    def spy(name):
+        def call(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real[name](*args)
+            end.record()
+            marks.append((name, start, end))
+            return out
+        return call
+
+    for name in names:
+        setattr(kernels, name, spy(name))
+    try:
+        for _ in range(reps):
+            fn()
+    finally:
+        for name, wrapper in real.items():
+            setattr(kernels, name, wrapper)
+    torch.cuda.synchronize()
+    calls = {name: sum(1 for n, _s, _e in marks if n == name) / reps
+             for name in names}
+    return sum(s.elapsed_time(e) for _n, s, e in marks) / reps, calls
 
 
 def _host_ms(fn, device, reps: int = 20) -> float:
@@ -874,9 +942,9 @@ def k4_phase(calls, device, seed) -> dict:
 
 
 def mesh_scan_phase(mesh, scanner, policies, pods, slice_digests) -> dict:
-    """(a) ``BatchScanner(mesh=...)`` over every Pod, held row by row
-    against the slice's digests and against the host engine, with the
-    fleet telemetry armed on a fresh registry."""
+    """(a) ``BatchScanner(mesh=...)`` over ``pods`` (the slice's first
+    Pods), held row by row against the slice's digests and against the
+    host engine, with the fleet telemetry armed on a fresh registry."""
     from kyverno_tpu_torch.compiler.scan import BatchScanner
     from kyverno_tpu_torch.observability import fleet
     from kyverno_tpu_torch.observability.metrics import MetricsRegistry
@@ -892,7 +960,8 @@ def mesh_scan_phase(mesh, scanner, policies, pods, slice_digests) -> dict:
         fleet.disable()
     rec['differing_rows'] = sum(a != b for a, b in zip(digests,
                                                        slice_digests))
-    rec['digest_equal'] = digest_of(digests) == digest_of(slice_digests)
+    rec['digest_equal'] = digest_of(digests) == \
+        digest_of(slice_digests, len(digests))
     mkey = f'data{mesh.world_size}'
     rec['fleet'] = {
         'dispatches': reg.histogram_count(fleet.MESH_STEP_DURATION,
@@ -1052,7 +1121,10 @@ def mesh_phase(policies, pods, scanner, slice_digests, device, seed) -> dict:
         init_group('nccl', os.path.join(tmp, 'store'), 0, 1)
         try:
             mesh = make_mesh()
-            scan, digests = mesh_scan_phase(mesh, scanner, policies, pods,
+            print(f'cut: mesh: scan_report_results over {MESH_CHILD_PODS} '
+                  f'of the {len(pods)} Pods (3 chunks + 1)', flush=True)
+            scan, digests = mesh_scan_phase(mesh, scanner, policies,
+                                            pods[:MESH_CHILD_PODS],
                                             slice_digests)
             scan['seconds'] = time.perf_counter() - t0
             print('mesh ' + json.dumps(scan), flush=True)
@@ -1405,18 +1477,18 @@ def mutate_phase(scanner, policies, pods, seed):
 # phase 6: admission serving through the webhook
 
 
-def _review(i: int, route: str, obj: dict, rng) -> bytes:
+def _review(i: int, route: str, obj: dict, rng, user=None) -> bytes:
     """One AdmissionReview: 30 % UPDATEs with an ``oldObject``, 8
-    users, the Pod's own namespace (7 of them), and Kyverno's default
-    webhook timeout of 10 s."""
+    users (or ``user``, a userInfo), the Pod's own namespace (7 of
+    them), and Kyverno's default webhook timeout of 10 s."""
     ns = obj['metadata']['namespace']
     req = {'uid': f'{route.strip("/").replace("/", "-")}-{i}',
            'operation': 'CREATE',
            'kind': {'group': '', 'version': 'v1', 'kind': 'Pod'},
            'resource': {'group': '', 'version': 'v1', 'resource': 'pods'},
            'namespace': ns, 'name': obj['metadata']['name'], 'object': obj,
-           'userInfo': {'username': f'user-{i % 8}',
-                        'groups': ['system:authenticated']},
+           'userInfo': user or {'username': f'user-{i % 8}',
+                                'groups': ['system:authenticated']},
            'timeoutSeconds': 10}
     if rng.random() < 0.3:
         old = json.loads(json.dumps(obj))
@@ -1443,6 +1515,40 @@ def _reviews(n: int, seed: int, start: int):
     return out
 
 
+def _restricted_reviews(n: int, seed: int, start: int):
+    """``n`` /validate/fail reviews of restricted Pods, each with the
+    userInfo of an ``ADMISSIONS`` tuple (every subject, role and
+    cluster-role branch of the admission-lanes pack)."""
+    from kyverno_tpu_torch import smokepack
+    rng = random.Random(seed)
+    out = []
+    for j in range(n):
+        i = start + j
+        obj = smokepack.make_restricted_pod(rng, i)
+        user = rng.choice(smokepack.ADMISSIONS)[0]['userInfo']
+        out.append(('/validate/fail', _review(i, '/validate/fail', obj, rng,
+                                              user=user)))
+    return out
+
+
+def _restricted_context():
+    """The PolicyContextBuilder of the restricted phase's handlers: the
+    roles and cluster roles of each ``ADMISSIONS`` user, standing in for
+    the RBAC listers the handler resolves them through, and the
+    exclude-group roles of a Kyverno ConfigMap that adds ``dev``."""
+    from kyverno_tpu_torch import smokepack
+    from kyverno_tpu_torch.config.config import Configuration
+    from kyverno_tpu_torch.webhooks.admission import PolicyContextBuilder
+    table = {info['userInfo']['username']: (info['roles'],
+                                            info['clusterRoles'])
+             for info, *_rest in smokepack.ADMISSIONS}
+    configuration = Configuration()
+    configuration.load({'data': {'excludeGroupRole': 'dev'}})
+    return PolicyContextBuilder(
+        configuration,
+        role_resolver=lambda user, groups: table.get(user, ([], [])))
+
+
 def _pctl(values, q: float) -> float:
     data = sorted(values)
     return data[min(len(data) - 1, int(q * len(data)))] if data else 0.0
@@ -1466,7 +1572,8 @@ def admission_kernels(server, oracle, reviews, vev, device) -> dict:
     in its place: out8 and out32 must be bit-equal, and that run gives
     K1c its inputs.  These launches come before the counted passes."""
     seen = {'fdet_select': [], 'status_vm': [], 'k3_mutate': []}
-    for route in ('/validate/fail', '/mutate'):
+    routes = sorted({r for r, _b in reviews})
+    for route in routes:
         body = next(b for r, b in reviews if r == route)
         got, calls = capture_kernel_inputs(
             lambda: server.handle(route, body), names=tuple(seen))
@@ -1475,7 +1582,7 @@ def admission_kernels(server, oracle, reviews, vev, device) -> dict:
                                  f'from the host loop')
         for name, c in calls.items():
             seen[name].extend(c)
-    if not seen['k3_mutate']:
+    if '/mutate' in routes and not seen['k3_mutate']:
         raise AssertionError('K3 was never called on /mutate')
     if not seen['status_vm']:
         raise AssertionError('K1v was never called on /validate/fail')
@@ -1487,13 +1594,14 @@ def admission_kernels(server, oracle, reviews, vev, device) -> dict:
                              f'admission shape: {err}')
     if not eager_seen['wildcard_match'] or launched['k1c_wildcard'] <= 0:
         raise AssertionError('K1c never launched in the eager walk')
-    k3 = [measure_k3(lanes, sites, device)
-          for lanes, sites in seen['k3_mutate']]
     out = {'k1_vm': measure_k1v(seen['status_vm'], device),
            'k1h_fdet_select': measure_k1h(seen['fdet_select'], device),
-           'k1c_wildcard': measure_k1c(eager_seen['wildcard_match'], device),
-           'k3_mutate': dict(k3[0], calls=len(k3), max_abs_err=max(
-               c['max_abs_err'] for c in k3))}
+           'k1c_wildcard': measure_k1c(eager_seen['wildcard_match'], device)}
+    if seen['k3_mutate']:
+        k3 = [measure_k3(lanes, sites, device)
+              for lanes, sites in seen['k3_mutate']]
+        out['k3_mutate'] = dict(k3[0], calls=len(k3), max_abs_err=max(
+            c['max_abs_err'] for c in k3))
     bad = {n: r['max_abs_err'] for n, r in out.items() if r['max_abs_err']}
     if bad:
         raise AssertionError(f'kernels differ from their plain versions at '
@@ -1516,14 +1624,20 @@ def admission_kernels(server, oracle, reviews, vev, device) -> dict:
     return out
 
 
-def admission_phase(seed: int) -> dict:
+def admission_phase(seed: int, restricted: bool = False) -> dict:
     """The admission webhook on the card against a host-loop handler.
 
-    Fails on any response-byte mismatch, any ``host_fallback`` decision,
-    any breaker failure or a breaker left open, a sync-pass decision not
-    served on ``sync``, under 99 % of batch-pass validate decisions on
-    ``batch``, under 99 % of /mutate reviews dispatched through the
-    mutate scanner, and K1c, K1h or K3 never launched."""
+    By default the smoke pack in Enforce and the mutate pack, over
+    alternating /validate/fail and /mutate reviews; with ``restricted``
+    the restricted configuration (``smokepack.load_restricted_pack``) in
+    Enforce over /validate/fail reviews of restricted Pods from the
+    ``ADMISSIONS`` users, both handlers resolving their roles through
+    ``_restricted_context``.  Fails on any response-byte mismatch, any
+    ``host_fallback`` decision, any breaker failure or a breaker left
+    open, a sync-pass decision not served on ``sync``, under 99 % of
+    batch-pass validate decisions on ``batch``, under 99 % of /mutate
+    reviews dispatched through the mutate scanner, a program routed to
+    the eager walk, and a kernel of the path never launched."""
     import threading
     from kyverno_tpu_torch import smokepack
     from kyverno_tpu_torch.observability import provenance
@@ -1535,29 +1649,42 @@ def admission_phase(seed: int) -> dict:
     from kyverno_tpu_torch.webhooks.server import WebhookServer
 
     cache = Cache()
-    cache.warm_up(smokepack.load_smoke_pack('Enforce') +
-                  smokepack.load_mutate_pack())
-    handlers = ResourceHandlers(cache, serving_mode='sync')  # the card
+    if restricted:
+        cache.warm_up(smokepack.load_restricted_pack('Enforce'))
+        builder = _restricted_context()
+        handlers = ResourceHandlers(cache, serving_mode='sync',
+                                    pc_builder=builder)
+        oracle = WebhookServer(ResourceHandlers(cache, device=False,
+                                                pc_builder=builder))
+        need = ('k1_vm', 'k1h_fdet_select')
+    else:
+        cache.warm_up(smokepack.load_smoke_pack('Enforce') +
+                      smokepack.load_mutate_pack())
+        handlers = ResourceHandlers(cache, serving_mode='sync')  # the card
+        oracle = WebhookServer(ResourceHandlers(cache, device=False))
+        need = ADMISSION_KERNELS
     server = WebhookServer(handlers)
-    oracle = WebhookServer(ResourceHandlers(cache, device=False))
     validate = cache.get_policies(pcache.VALIDATE_ENFORCE, 'Pod', 'ns-0')
     mutate = cache.get_policies(pcache.MUTATE, 'Pod', 'ns-0')
     t0 = time.perf_counter()
     if not handlers.wait_device_ready(validate, timeout=READY_S):
         raise AssertionError('the validate scanner did not come up')
-    msc = None
-    while msc is None and time.perf_counter() - t0 < READY_S:
-        msc = handlers._device_scanner(mutate, kind='mutate')
-        time.sleep(0.02)
-    if msc is None or not msc.ok:
-        raise AssertionError(f'the mutate scanner did not come up: {msc}')
+    counter = None
+    if mutate:
+        msc = None
+        while msc is None and time.perf_counter() - t0 < READY_S:
+            msc = handlers._device_scanner(mutate, kind='mutate')
+            time.sleep(0.02)
+        if msc is None or not msc.ok:
+            raise AssertionError(f'the mutate scanner did not come up: '
+                                 f'{msc}')
+        counter = MutateCounter(msc)
     ready_s = time.perf_counter() - t0
     vev = handlers._device_scanner(validate)._evaluator
     eager = {j: r for j, r in vev.routes.items() if r[0] != 'vm'}
     if eager:
         raise AssertionError(f'admission pack programs on the eager walk: '
                              f'{eager}')
-    counter = MutateCounter(msc)
     failures = []
     record_failure = handlers._record_key_failure
 
@@ -1568,7 +1695,8 @@ def admission_phase(seed: int) -> dict:
     handlers._record_key_failure = counting_failure
     flight = os.path.join(HERE, 'chiprun_out', 'flight')
     report = {'ready_s': ready_s, 'policies': {
-        'validate': len(validate), 'mutate': len(mutate)}}
+        'validate': len(validate), 'mutate': len(mutate)},
+        'adm_cols': vev.n_adm}
     launches = {}
 
     def drive(reviews, clients):
@@ -1601,7 +1729,8 @@ def admission_phase(seed: int) -> dict:
 
     def run_pass(name, reviews, clients, check):
         rec = provenance.configure(flight_n=len(reviews), dump_dir=flight)
-        counter.reset()
+        if counter is not None:
+            counter.reset()
         kernels.reset_launches()
         got, lat, wall = drive(reviews, clients)
         launches[name] = dict(kernels.LAUNCHES)
@@ -1612,34 +1741,43 @@ def admission_phase(seed: int) -> dict:
                       if got[j] != oracle.handle(*reviews[j])]
         n_val = sum(1 for r, _ in reviews if r == '/validate/fail')
         n_mut = len(reviews) - n_val
-        return {'reviews': len(reviews), 'clients': clients,
-                'wall_s': wall, 'requests_per_s': len(reviews) / wall,
-                'latency': _latency(lat), 'validate_paths': paths,
-                'validate_decisions': n_val, 'mutate_reviews': n_mut,
-                'mutate': counter.stats(),
-                'mutate_dispatched_frac': counter.rows / max(n_mut, 1),
-                'launches': launches[name], 'checked': len(check),
-                'mismatches': len(mismatches),
-                'first_mismatches': mismatches[:10],
-                'check_s': time.perf_counter() - t}
+        out = {'reviews': len(reviews), 'clients': clients,
+               'wall_s': wall, 'requests_per_s': len(reviews) / wall,
+               'latency': _latency(lat), 'validate_paths': paths,
+               'validate_decisions': n_val, 'mutate_reviews': n_mut,
+               'launches': launches[name], 'checked': len(check),
+               'mismatches': len(mismatches),
+               'first_mismatches': mismatches[:10],
+               'check_s': time.perf_counter() - t}
+        if counter is not None:
+            out.update(mutate=counter.stats(),
+                       mutate_dispatched_frac=counter.rows / max(n_mut, 1))
+        return out
 
     try:
-        sync = _reviews(2 * SYNC_REVIEWS, seed, 0)
+        if restricted:
+            sync = _restricted_reviews(SYNC_REVIEWS, seed, 0)
+        else:
+            sync = _reviews(2 * SYNC_REVIEWS, seed, 0)
         report['kernels_at_admission'] = admission_kernels(
             server, oracle, sync, vev, handlers.torch_device)
         report['sync'] = run_pass('sync', sync, 1, range(len(sync)))
-        # the card's share of one sync request: its kernels' device time
+        # the card's share of one sync request: the device time of the
+        # kernels it launched (CUDA events around each wrapper call)
         # against the request's latency
-        for route in ('/validate/fail', '/mutate'):
+        for route in sorted({r for r, _b in sync}):
             body = next(b for r, b in sync if r == route)
-            busy = _device_busy_ms(lambda: server.handle(route, body),
-                                   handlers.torch_device, reps=5)
+            busy, calls = request_kernel_ms(
+                lambda: server.handle(route, body))
             p50 = report['sync']['latency'][route]['p50_ms']
             report['sync']['latency'][route].update(
-                device_busy_ms=busy,
-                device_idle_share=None if busy is None else 1 - busy / p50)
+                device_busy_ms=busy, kernel_calls=calls,
+                device_idle_share=1 - busy / p50)
         handlers.serving_mode = 'batch'
-        batch = _reviews(BATCH_REVIEWS, seed + 1, len(sync))
+        if restricted:
+            batch = _restricted_reviews(BATCH_REVIEWS, seed + 1, len(sync))
+        else:
+            batch = _reviews(BATCH_REVIEWS, seed + 1, len(sync))
         sample = sorted(random.Random(seed).sample(range(len(batch)),
                                                    BATCH_ORACLE))
         report['batch'] = run_pass('batch', batch, BATCH_CLIENTS, sample)
@@ -1648,11 +1786,11 @@ def admission_phase(seed: int) -> dict:
         handlers.shutdown()
     report['breaker_failures'] = failures
     report['breakers'] = handlers._breakers.report()
-    open_keys = [k for k in (handlers._policy_key(validate),
-                             handlers._policy_key(mutate))
+    open_keys = [k for k in [handlers._policy_key(validate)] +
+                 ([handlers._policy_key(mutate)] if mutate else [])
                  if handlers._breakers.state(k) != breaker.CLOSED]
     report['launches'] = {k: sum(launches[p][k] for p in launches)
-                          for k in ADMISSION_KERNELS}
+                          for k in need}
 
     sp, bp = report['sync'], report['batch']
     problems = []
@@ -1663,7 +1801,7 @@ def admission_phase(seed: int) -> dict:
         if p['validate_paths'].get('host_fallback'):
             problems.append(f'{name}: host_fallback decisions '
                             f'{p["validate_paths"]}')
-        if p['mutate_dispatched_frac'] < 0.99:
+        if counter is not None and p['mutate_dispatched_frac'] < 0.99:
             problems.append(f'{name}: only {p["mutate"]["rows"]} of '
                             f'{p["mutate_reviews"]} /mutate reviews went '
                             f'through the mutate scanner')
@@ -1686,6 +1824,134 @@ def admission_phase(seed: int) -> dict:
                         f'each runs once per K1 call')
     report['problems'] = problems
     return report
+
+
+def measure_k1i(ev, packed, program, device) -> dict:
+    """K1i's plain version, ``_adm_match_graph`` (the torch ops that
+    K1v's admission entries replace), on the chunk's admission lanes on
+    the card and on their first 64 rows (the admission shape), with
+    the evaluator's device constants cached as in a call: milliseconds
+    per call (CUDA events over 20 calls), host dispatch and aten ops,
+    against the bound of the function: the lanes read once and the
+    int8 columns written once, over the card's memory rate."""
+    from kyverno_tpu_torch.ops import eval as k1
+    lanes = ev.plan_for(program.layout).lanes(packed)
+    adm = {name: lanes[name] for name in k1.ADM_LANES}
+    rows = next(iter(adm.values())).shape[0]
+    out = {}
+    token = k1._CONSTS.set({})
+    try:
+        for label, n in (('chunk', rows), ('admission', 64)):
+            sub = {name: lane[:n] for name, lane in adm.items()}
+
+            def call(sub=sub):
+                return k1._adm_match_graph(ev.adm_table, sub)
+
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in sub.values()) + n * ev.n_adm
+            out[label] = {'rows': n, 'ms': _ms(call, device),
+                          'host_dispatch_ms': _host_ms(call, device),
+                          'aten_ops': aten_ops(call, device)['total'],
+                          'bound_ms': nbytes / HBM_BYTES_PER_S * 1e3,
+                          'bound_by': 'bytes'}
+    finally:
+        k1._CONSTS.reset(token)
+    return out
+
+
+def measure_foreach_trees(pods, device, chunk: int) -> dict:
+    """The restricted chart's two ``foreach`` trees alone: an evaluator
+    of ``RESTRICTED_FOREACH_PACK`` on the card over the first ``chunk``
+    of ``pods`` and over its first 64 Pods (the admission shape), K1v
+    against its plain version (the eager walk) on the same card
+    tensors: the error, both times (CUDA events) and K1v's bound."""
+    from kyverno_tpu_torch import smokepack
+    from kyverno_tpu_torch.api.policy import load_policies_from_yaml
+    from kyverno_tpu_torch.compiler.compile import compile_policies
+    from kyverno_tpu_torch.compiler.encode import encode_batch
+    from kyverno_tpu_torch.ops import kernels
+    from kyverno_tpu_torch.ops.eval import build_evaluator, shard_batch
+    cps = compile_policies(load_policies_from_yaml(
+        smokepack.RESTRICTED_FOREACH_PACK))
+    ev = build_evaluator(cps, device)
+    out = {}
+    for label, n in (('chunk', chunk), ('admission', 64)):
+        packed, layout = shard_batch(encode_batch(
+            pods[:n], cps, padded_n=n).tensors(), device)
+        program = ev.plan_for(layout).program
+        bound_ms, bound_by = _k1v_bound(program, n)
+        out[label] = {
+            'rows': n, 'entries': int(program.trees.shape[0]),
+            'row_insns': program.row_insns,
+            'max_abs_err': _max_abs_err(kernels.status_vm(packed, program),
+                                        program.plain(packed)),
+            'ms': _ms(lambda: kernels.status_vm(packed, program), device),
+            'plain_ms': _ms(lambda: program.plain(packed), device, reps=3),
+            'bound_ms': bound_ms, 'bound_by': bound_by}
+    return out
+
+
+def restricted_phase(scanner, policies, pods, device, seed) -> dict:
+    """Phase 8: the restricted configuration (the smoke pack, the
+    restricted chart's ``foreach`` capability policies and the
+    admission-lanes pack) on the card.  Every program must be routed to
+    K1v.  K1v is held bit-equal to its plain version (the eager walk and
+    ``_adm_match_graph``) on the first chunk with the admission lanes of
+    ``ADMISSIONS`` tuples, and ``_adm_match_graph`` must not run on the
+    card; then the scan over every Pod, checked against the host engine,
+    and the admission webhook (``admission_phase(restricted=True)``)."""
+    from kyverno_tpu_torch import smokepack
+    eager = {j: r for j, r in scanner._evaluator.routes.items()
+             if r[0] != 'vm'}
+    if eager:
+        raise AssertionError(f'restricted programs on the eager walk: '
+                             f'{eager}')
+    adm_rows = [smokepack.ADMISSIONS[i % len(smokepack.ADMISSIONS)]
+                for i in range(scanner.CHUNK)]
+    seen, chunk = first_chunk_inputs(scanner, pods, device,
+                                     adm_rows=adm_rows)
+    k1v = measure_k1v(seen['status_vm'], device)
+    if k1v['max_abs_err']:
+        raise AssertionError(f'K1v differs from its plain version on the '
+                             f'restricted chunk: {k1v["max_abs_err"]}')
+    k1i_card = chunk['aten_ops']['by_part']['k1i_adm_match']
+    k1i_eager = chunk['eager_walk']['aten_ops']['by_part']['k1i_adm_match']
+    if k1i_card or not k1i_eager:
+        raise AssertionError(f'K1i aten ops: {k1i_card} with K1v (must be '
+                             f'0), {k1i_eager} in the plain version')
+    packed, program = seen['status_vm'][0]
+    k1i = measure_k1i(scanner._evaluator, packed, program, device)
+    trees = measure_foreach_trees(pods, device, scanner.CHUNK)
+    if any(r['max_abs_err'] for r in trees.values()):
+        raise AssertionError(f'K1v differs from the eager walk on the '
+                             f'foreach trees: {trees}')
+    print('restricted_chunk ' + json.dumps(dict(
+        {k: chunk[k] for k in ('rows', 'host_dispatch_ms',
+                               'device_span_ms', 'k1v_check', 'aten_ops',
+                               'eager_walk', 'routes')},
+        k1v={k: k1v[k] for k in ('max_abs_err', 'ms', 'kernel_device_ms',
+                                 'plain_ms', 'bound_ms', 'bound_by',
+                                 'shape')},
+        adm_cols=program.n_adm, k1i_plain=k1i, foreach_trees=trees)),
+        flush=True)
+    sl, _digests = slice_phase(scanner, policies, pods)
+    print('restricted_slice ' + json.dumps(sl), flush=True)
+    if sl['mismatches']:
+        raise AssertionError(f'{sl["mismatches"]} restricted rows differ '
+                             f'from the host engine: '
+                             f'{sl["first_mismatches"]}')
+    adm = admission_phase(seed, restricted=True)
+    print('restricted_admission ' + json.dumps(adm), flush=True)
+    if adm['problems']:
+        raise AssertionError('restricted admission: ' +
+                             '; '.join(adm['problems']))
+    k1i_64 = adm['kernels_at_admission']['k1_call']['aten_ops'][
+        'by_part']['k1i_adm_match']
+    if k1i_64:
+        raise AssertionError(f'K1i ran {k1i_64} aten ops at the admission '
+                             f'shape with K1v')
+    return {'chunk': chunk, 'k1v_chunk': k1v, 'k1i_plain': k1i,
+            'foreach_trees': trees, 'slice': sl, 'admission': adm}
 
 
 # ---------------------------------------------------------------------------
@@ -1756,9 +2022,14 @@ def main(argv=None) -> int:
     rng = random.Random(args.seed)
     pods = [smokepack.make_config4_pod(rng, i) for i in range(n)]
     scanner = BatchScanner(policies)       # on the card by default
+    rpolicies = smokepack.load_restricted_pack()
+    rrng = random.Random(args.seed)
+    rpods = [smokepack.make_restricted_pod(rrng, i) for i in range(n)]
+    rscanner = BatchScanner(rpolicies)
     # fork the encode workers before this process creates a CUDA
     # context, so no child ever inherits one
     scanner._encoder_pool.start()
+    rscanner._encoder_pool.start()
     device = scanner.device
     eager = {j: r for j, r in scanner._evaluator.routes.items()
              if r[0] != 'vm'}
@@ -1833,6 +2104,14 @@ def main(argv=None) -> int:
     print('admission ' + json.dumps(adm), flush=True)
     report['admission'] = adm
     phase_done('admission')
+
+    # 8. restricted -----------------------------------------------------
+    try:
+        rs = restricted_phase(rscanner, rpolicies, rpods, device, args.seed)
+    finally:
+        rscanner._encoder_pool.close()
+    report['restricted'] = rs
+    phase_done('restricted')
     for r in records:
         # K1v, K1h, K1c and K3 are held at the admission webhook's shapes:
         # its launches, and the times and bound of the kernel at the
@@ -1852,6 +2131,9 @@ def main(argv=None) -> int:
             'mesh_2rank': mesh['two_rank']['launches'].get(r['name'], 0),
             'mutate_chunk': mu['launches'].get(r['name'], 0),
             'admission': adm['launches'].get(r['name'], 0),
+            'restricted_scan': rs['slice']['launches'].get(r['name'], 0),
+            'restricted_admission': rs['admission']['launches'].get(
+                r['name'], 0),
             # the eager walks that hold K1v against its plain version
             # (K1c runs only there: on the main path its DP is in K1v)
             'k1v_checks': chunk_stats['k1v_check']['capture_launches'].get(

@@ -13,12 +13,30 @@
 // bit 1 known-false); a boolean is the known pair (v, !v).  The status
 // stack holds (status, detail, fail detail) triples.  Element axes are
 // loops: LOOP/ENDLOOP reduce a body over one index level (0, 1: the slot
-// element axes; 2: a gather's elements) with Kleene AND, Kleene OR or a
-// bitwise OR of both bits; SLOOP/SENDLOOP fold a status body into the
-// forall/exists accumulator (first failing element in index order, the
-// undecidable elements before it, element 0's fail detail).  A lane is
-// read at column off + (c0*i0 + c1*i1 + c2*i2 + c3) * stride of its
-// buffer's row, so a lane shallower than its context broadcasts.
+// element axes; 2: a gather's elements; 3: a foreach list's elements)
+// with Kleene AND, Kleene OR or a bitwise OR of the value's bits;
+// SLOOP/SENDLOOP fold a status body into the forall/exists accumulator
+// (first failing element in index order, the undecidable elements before
+// it, element 0's fail detail).  A lane is read at column
+// off + (c0*i0 + c1*i1 + c2*i2 + c3*i3 + k) * stride of its buffer's
+// row, so a lane shallower than its context broadcasts.
+//
+// The foreach list element has a level of its own (3) rather than
+// reusing level 0.  Conditions inside a foreach entry are lowered at
+// depth 0, so no slot loop is open around them, but such a condition
+// may still hold a leaf on a deeper slot, which reduces over levels 0
+// and 1, and every per-element gather ([R, FE, EG]) loops over its EG
+// elements at level 2 inside the list loop.  With its own level the
+// list loop never shares an index with either; it costs one int per
+// thread and one multiply-add per load.  SFEBEGIN/SFEENTRY/SFEEND fold
+// the entries of a foreach node into a status-stack accumulator: each
+// entry is a LOOP over level 3 whose body packs four per-element bits
+// (PACK2) and whose bitwise OR SFEENTRY reads.
+//
+// The admission match (K1i) is one more entry per eligible program:
+// membership of the int32 id lanes in a constant id set (IDIN, over the
+// int64 pool) and boolean bytecode; its AEND writes an int8 column of
+// adm_out.
 //
 // Control flow depends on the program only (loop widths are static), so
 // the threads of a block, which share one tree, never diverge on it.
@@ -45,6 +63,7 @@
 #define K1VM_SSTACK 16
 #define K1VM_LOCALS 16
 #define K1VM_FRAMES 4
+#define K1VM_LEVELS 4
 #define K1VM_INSN 6
 #define K1VM_LANE 8
 
@@ -67,12 +86,13 @@ enum K1vmOp {
   K1_STORE, K1_LOAD, K1_LOOP, K1_ENDLOOP, K1_SCONST, K1_SFROMK,
   K1_SVARERR, K1_SFAILGUARD, K1_STRACKFAIL, K1_SSEQ, K1_SANY, K1_SEQUALITY,
   K1_SCOND, K1_SLOOP, K1_SENDLOOP, K1_SFORALL, K1_SEXISTS, K1_SSCALARS,
-  K1_END
+  K1_END, K1_SUSP, K1_IDXLAST, K1_PACK2, K1_IDIN, K1_SFEBEGIN, K1_SFEENTRY,
+  K1_SFEEND, K1_AEND
 };
 
 // one evaluator call: the five packed buffers (uint8, int8, bool, int32,
 // int64; a missing one is null), their row widths in elements, the
-// program's tables and the unique-space outputs
+// program's tables, the unique-space outputs and the admission columns
 struct K1vmArgs {
   const unsigned char* buf[5];
   long long width[5];
@@ -84,8 +104,10 @@ struct K1vmArgs {
   int8_t* s_out;
   int8_t* d_out;
   int32_t* fd_out;
+  int8_t* adm_out;
   int n_uniq;
   int n_cols_u;
+  int n_adm;
 };
 
 struct K1vmStatus {
@@ -113,26 +135,31 @@ K1VM_HD uint8_t k1vm_known(bool v) { return v ? 1 : 2; }
 
 K1VM_HD int k1vm_esize(int b) { return b == 3 ? 4 : (b == 4 ? 8 : 1); }
 
+// a lane-table row: buffer, column, stride, c0, c1, c2, constant, c3
 K1VM_HD const unsigned char* k1vm_addr(const K1vmArgs& a, long long r,
                                        const int32_t* ln, const int* idx) {
   const int b = ln[0];
   const long long e = static_cast<long long>(ln[3]) * idx[0] +
                       static_cast<long long>(ln[4]) * idx[1] +
-                      static_cast<long long>(ln[5]) * idx[2] + ln[6];
+                      static_cast<long long>(ln[5]) * idx[2] +
+                      static_cast<long long>(ln[7]) * idx[3] + ln[6];
   const long long col = ln[1] + e * ln[2];
   return a.buf[b] + (r * a.width[b] + col) * k1vm_esize(b);
 }
 
-K1VM_HD int64_t k1vm_load(const K1vmArgs& a, long long r, const int32_t* ln,
-                          const int* idx) {
-  const unsigned char* p = k1vm_addr(a, r, ln, idx);
-  switch (ln[0]) {
+K1VM_HD int64_t k1vm_read(const unsigned char* p, int b) {
+  switch (b) {
     case 0: return *p;
     case 1: return *reinterpret_cast<const int8_t*>(p);
     case 2: return *p != 0;
     case 3: return *reinterpret_cast<const int32_t*>(p);
     default: return *reinterpret_cast<const int64_t*>(p);
   }
+}
+
+K1VM_HD int64_t k1vm_load(const K1vmArgs& a, long long r, const int32_t* ln,
+                          const int* idx) {
+  return k1vm_read(k1vm_addr(a, r, ln, idx), ln[0]);
 }
 
 K1VM_HD bool k1vm_cmp_i(int64_t x, int64_t c, int op) {
@@ -211,14 +238,48 @@ K1VM_HD uint8_t k1vm_glob(const unsigned char* head, int w, int64_t slen,
   return static_cast<uint8_t>((t ? 1 : 0) | (f ? 2 : 0));
 }
 
-// Run the tree whose instructions start at `pc` for row r; its END
-// writes the status, detail and fail detail into unique column `col`.
+// The eager walk's _suspicious_scalar, less its has_wild term: a '-' in
+// the value, a '[' after nothing but whitespace (the cumprod of the
+// whitespace test over the whole window), or a value past the window.
+K1VM_HD bool k1vm_susp(const unsigned char* head, int w, int64_t slen) {
+  const int64_t n = slen < w ? slen : w;
+  bool dash = false, bracket = false, before = true;
+  for (int j = 0; j < w; ++j) {
+    const unsigned char c = head[j];
+    if (j < n) {
+      dash |= c == '-';
+      bracket |= before && c == '[';
+    }
+    before = before && (c == ' ' || c == '\t' || c == '\n' || c == '\r');
+  }
+  return dash || bracket || slen > w;
+}
+
+// One foreach entry folded into the accumulator (eval.py's foreach
+// branch): acc holds nonpass | unknown << 1 | apply << 2 | fd_ok << 3;
+// fl is the OR over the list's elements of FAIL | PASS << 1 |
+// undecidable << 2 | last-element error << 3.  fd_ok is taken before
+// this entry's outcome is merged.
+K1VM_HD int k1vm_foreach_entry(int acc, int fl, bool active, bool ovf) {
+  const bool any_fail = fl & 1, any_pass = fl & 2, any_unk = fl & 4;
+  const bool last_err = (fl & 8) && !ovf;
+  const bool nonpass = active && (any_fail || last_err);
+  const bool unknown = active && (any_unk || ovf) && !nonpass;
+  const bool apply = active && any_pass;
+  if (!(acc & 3) && active && any_fail) acc |= 8;
+  return acc | (nonpass ? 1 : 0) | (unknown ? 2 : 0) | (apply ? 4 : 0);
+}
+
+// Run the entry whose instructions start at `pc` for row r: a status
+// tree, whose END writes the status, detail and fail detail into unique
+// column `col`, or an admission match, whose AEND writes admission
+// column `col`.
 K1VM_HD void k1vm_run(const K1vmArgs& a, long long r, int pc) {
   uint8_t ks[K1VM_KSTACK];
   K1vmStatus ss[K1VM_SSTACK];
   uint8_t loc[K1VM_LOCALS];
   K1vmFrame fr[K1VM_FRAMES];
-  int idx[3] = {0, 0, 0};
+  int idx[K1VM_LEVELS] = {0, 0, 0, 0};
   int kp = 0, sp = 0, fp = 0;
   for (;;) {
     const int32_t* in = a.code + static_cast<long long>(pc) * K1VM_INSN;
@@ -257,7 +318,8 @@ K1VM_HD void k1vm_run(const K1vmArgs& a, long long r, int pc) {
         const double key = k1vm_div(static_cast<double>(k1vm_load(a, r, ln, idx)),
                                     1000.0);
         const double kd = trunc(k1vm_mul(key, 1e9));
-        ks[kp++] = k1vm_known(k1vm_cmp_f(k1vm_div(kd, 1e9), a.f64[in[3]], in[2]));
+        ks[kp++] = k1vm_known(k1vm_cmp_f(in[4] ? kd : k1vm_div(kd, 1e9),
+                                         a.f64[in[3]], in[2]));
         break;
       }
       case K1_BYTES: {
@@ -521,6 +583,54 @@ K1VM_HD void k1vm_run(const K1vmArgs& a, long long r, int pc) {
         ss[sp++] = K1vmStatus{static_cast<int8_t>(s), 0, in[3]};
         break;
       }
+      case K1_SUSP: {
+        const int32_t* len_ln = a.lanes + static_cast<long long>(in[2]) * K1VM_LANE;
+        ks[kp++] = k1vm_known(k1vm_susp(k1vm_addr(a, r, ln, idx), ln[2],
+                                        k1vm_load(a, r, len_ln, idx)));
+        break;
+      }
+      case K1_IDXLAST: {
+        const int64_t c = k1vm_load(a, r, ln, idx);
+        ks[kp++] = k1vm_known(idx[in[2]] == (c > 1 ? c - 1 : 0));
+        break;
+      }
+      case K1_PACK2:
+        --kp;
+        ks[kp - 1] = static_cast<uint8_t>((ks[kp - 1] & 3) | ((ks[kp] & 3) << 2));
+        break;
+      case K1_IDIN: {
+        const unsigned char* p = k1vm_addr(a, r, ln, idx);
+        const int esz = k1vm_esize(ln[0]);
+        bool hit = false;
+        for (int j = 0; j < in[2]; ++j) {
+          const int64_t x = k1vm_read(p + j * esz, ln[0]);
+          for (int k = 0; k < in[4]; ++k) hit |= x == a.i64[in[3] + k];
+        }
+        ks[kp++] = k1vm_known(hit);
+        break;
+      }
+      case K1_SFEBEGIN:
+        ss[sp++] = K1vmStatus{0, 0, 0};
+        break;
+      case K1_SFEENTRY: {
+        const int fl = ks[--kp];
+        const bool ovf = ks[--kp] & 1;
+        const bool active = ks[--kp] & 1;
+        ss[sp - 1].s = static_cast<int8_t>(
+            k1vm_foreach_entry(ss[sp - 1].s, fl, active, ovf));
+        break;
+      }
+      case K1_SFEEND: {
+        const int acc = ss[sp - 1].s;
+        const int s = (acc & 1) ? K1VM_FAIL
+            : (acc & 2) ? K1VM_HOST : (acc & 4) ? K1VM_PASS : K1VM_SKIP;
+        ss[sp - 1] = K1vmStatus{static_cast<int8_t>(s), 0,
+                                (acc & 8) ? 0 : -1};
+        break;
+      }
+      case K1_AEND:
+        a.adm_out[r * a.n_adm + in[1]] = static_cast<int8_t>(ks[kp - 1] & 1);
+        return;
       default: {  // K1_END
         const K1vmStatus st = ss[sp - 1];
         a.s_out[r * a.n_uniq + in[1]] = st.s;

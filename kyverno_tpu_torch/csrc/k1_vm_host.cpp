@@ -16,8 +16,8 @@ extern "C" int k1_vm_host(const void* const* bufs, const long long* widths,
                           long long rows, const void* code, const void* lanes,
                           const void* i64, const void* f64, const void* bytes,
                           const void* trees, int n_trees, void* s_out,
-                          void* d_out, void* fd_out, int n_uniq,
-                          int n_cols_u) {
+                          void* d_out, void* fd_out, void* adm_out,
+                          int n_uniq, int n_cols_u, int n_adm) {
   K1vmArgs a;
   for (int b = 0; b < 5; ++b) {
     a.buf[b] = static_cast<const unsigned char*>(bufs[b]);
@@ -31,8 +31,10 @@ extern "C" int k1_vm_host(const void* const* bufs, const long long* widths,
   a.s_out = static_cast<int8_t*>(s_out);
   a.d_out = static_cast<int8_t*>(d_out);
   a.fd_out = static_cast<int32_t*>(fd_out);
+  a.adm_out = static_cast<int8_t*>(adm_out);
   a.n_uniq = n_uniq;
   a.n_cols_u = n_cols_u;
+  a.n_adm = n_adm;
   const int32_t* tr = static_cast<const int32_t*>(trees);
   for (long long r = 0; r < rows; ++r)
     for (int t = 0; t < n_trees; ++t) k1vm_run(a, r, tr[2 * t]);

@@ -36,7 +36,7 @@ KERNELS: Dict[str, tuple] = {
     'k1_vm': ('k1_vm', (
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong),
         ctypes.c_longlong, _P, _P, _P, _P, _P, _P, ctypes.c_int, _P, _P, _P,
-        ctypes.c_int, ctypes.c_int, _P)),
+        _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P)),
     'k1h_fdet_select': ('k1h_fdet_select', (
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p)),

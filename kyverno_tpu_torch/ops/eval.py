@@ -12,14 +12,16 @@ the host engine, so exactness is never lost.  ``detail`` carries the
 anyPattern index that passed (for the pass-message template).
 
 On the card the status trees run as one hand-written CUDA kernel, K1v
-(``ops/vm.py`` lowers each unique tree to bytecode once per pack
-layout; ``csrc/k1_vm.cu`` interprets every tree over the packed batch
-in one launch).  The program walk below — torch ops over ``[R]`` /
-``[R, E]`` tensors, one structure walk per call — is K1v's plain
-version: a CPU batch takes it, and it evaluates the trees K1v does not
-take (``foreach`` trees; ``call.routes``).  Two more parts are kernels
-(``ops/kernels.py``): the walk's glob DP of ``_View.wildcard_const``
-(K1c) and the compact fail-detail select of ``evaluate_packed`` (K1h).
+(``ops/vm.py`` lowers each unique tree, ``foreach`` trees included, and
+the per-row admission match of the eligible programs to bytecode once
+per pack layout; ``csrc/k1_vm.cu`` interprets all of it over the packed
+batch in one launch).  The program walk below — torch ops over ``[R]``
+/ ``[R, E]`` tensors, one structure walk per call — and
+``_adm_match_graph`` are K1v's plain version: a CPU batch takes them,
+and the walk evaluates a tree only past one of K1v's named limits
+(``call.routes``).  Two more parts are kernels (``ops/kernels.py``):
+the walk's glob DP of ``_View.wildcard_const`` (K1c) and the compact
+fail-detail select of ``evaluate_packed`` (K1h).
 
 Boolean facts are tracked as Kleene pairs ``(t, f)`` (known-true,
 known-false); any value the encoder could not represent exactly simply
@@ -52,6 +54,10 @@ from ..utils.duration import parse_duration
 from ..utils.quantity import Quantity
 
 from ..device import resolve_device
+# the per-row admission lanes ride every non-mesh dispatch of a policy
+# set with at least one admission-dependent eligible rule, zero-filled
+# when the scan carries no admission data
+from ..compiler.admission import LANE_NAMES as ADM_LANES
 from . import kernels
 
 _I64_MAX = (1 << 63) - 1
@@ -1213,15 +1219,6 @@ def policy_set_fingerprint(policies) -> str:
     return hashlib.sha256(payload.encode()).hexdigest()[:20]
 
 
-#: per-row admission lane names (compiler/admission.py contract); the
-#: lanes ride every non-mesh dispatch of a policy set with at least one
-#: admission-dependent eligible rule, zero-filled when the scan carries
-#: no admission data, so they add inputs — never executables
-ADM_LANES = ('__admres__', '__adm_user__', '__adm_groups__',
-             '__adm_roles__', '__adm_croles__', '__adm_hasinfo__',
-             '__adm_excluded__')
-
-
 def _adm_member2(lanes2d, ids):
     """∃ lane value ∈ ids over a [R, W] id lane (ids are static interned
     operand ids ≥ 0; -1 marks absent/out-of-vocabulary lane slots)."""
@@ -1753,12 +1750,13 @@ def build_evaluator(cps: CompiledPolicySet, device=None):
     uniq_groups: List[np.ndarray] = [
         np.flatnonzero(uniq_idx_np == u) for u in range(n_uniq)]
 
-    # K1v (ops/vm.py, csrc/k1_vm.cu) runs every unique tree it can take
-    # in one launch; the route of each tree is decided here, once, from
-    # the IR.  The eager walk below stays as K1v's plain version and
-    # evaluates the trees routed to it (foreach trees).
+    # K1v (ops/vm.py, csrc/k1_vm.cu) runs every unique tree and the
+    # admission match in one launch; the route of each tree is decided
+    # here, once, from the IR.  The eager walk below stays as K1v's
+    # plain version and evaluates only trees past a named kernel limit.
     from . import vm
-    vm_info = vm.TreeInfo(cps, uniq_trees, uniq_aux_base, n_uniq, n_cols_u)
+    vm_info = vm.TreeInfo(cps, uniq_trees, uniq_aux_base, n_uniq, n_cols_u,
+                          adm_table)
     uniq_routes = vm.route_trees(vm_info, _probe_layout(cps)) \
         if n_uniq else {}
     vm_trees = [u for u in range(n_uniq) if uniq_routes[u][0] == 'vm']
@@ -1847,9 +1845,10 @@ def build_evaluator(cps: CompiledPolicySet, device=None):
 
     class LayoutPlan:
         """What a call needs of one pack layout: K1v's program (None
-        without K1v trees), and the split of the lanes into the special
-        ones (row validity, match plane, admission lanes), which no
-        status tree reads, and the status trees' own."""
+        without K1v trees or admission entries), and the split of the
+        lanes into the special ones (row validity, match plane,
+        admission lanes), which no status tree reads, and the status
+        trees' own."""
 
         def __init__(self, layout):
             special = {'__rowvalid__', '__match__', *ADM_LANES}
@@ -1857,25 +1856,39 @@ def build_evaluator(cps: CompiledPolicySet, device=None):
                             if name in special]
             self.status_layout = {name: e for name, e in layout.items()
                                   if name not in special}
+            with_adm = adm_table is not None and vm.has_adm_lanes(layout)
             self.program = vm.lower(vm_info, vm_trees, layout) \
-                if vm_trees else None
+                if vm_trees or with_adm else None
             if self.program is not None:
                 def plain(packed, plan=self):
                     # K1v's plain version: the eager walk of its trees
-                    t = plan.status_lanes(packed)
+                    # and the admission match as torch ops
                     ref = next(iter(packed.values()))
-                    out = outputs(ref.shape[0], ref.device,
-                                  bool(eager_trees))
-                    with _walk():
-                        place(out, vm_trees, walk_trees(t, vm_trees))
-                    return out
+                    rows, dev = ref.shape[0], ref.device
+                    out = outputs(rows, dev, bool(eager_trees))
+                    if vm_trees:
+                        t = plan.status_lanes(packed)
+                        with _walk():
+                            place(out, vm_trees, walk_trees(t, vm_trees))
+                    if plan.program.n_adm:
+                        lanes = plan.lanes(packed, ADM_LANES)
+                        with torch.profiler.record_function(
+                                'k1i_adm_match'), _consts():
+                            adm = _adm_match_graph(
+                                adm_table, lanes).to(torch.int8)
+                    else:
+                        adm = torch.empty((rows, 0), dtype=torch.int8,
+                                          device=dev)
+                    return out + (adm,)
                 self.program.plain = plain
 
-        def lanes(self, packed) -> Dict[str, torch.Tensor]:
-            """The special lanes of a packed batch."""
+        def lanes(self, packed, names=None) -> Dict[str, torch.Tensor]:
+            """The special lanes of a packed batch (those of ``names``
+            only, when given: each lane is a slice and a reshape)."""
             return {name: packed[g][:, off:off + width].reshape(
                 (packed[g].shape[0],) + tuple(tail))
-                for name, (g, off, width, tail) in self.special}
+                for name, (g, off, width, tail) in self.special
+                if names is None or name in names}
 
         def status_lanes(self, packed) -> Dict[str, torch.Tensor]:
             """The lane dict the eager walk reads."""
@@ -1884,7 +1897,8 @@ def build_evaluator(cps: CompiledPolicySet, device=None):
                 # slot-free policy sets (e.g. pure deny-by-subject rules
                 # — exactly the admission-lane vocabulary) still need one
                 # reference array for constant-tree row shapes
-                rowvalid = self.lanes(packed).get('__rowvalid__')
+                rowvalid = self.lanes(packed, ('__rowvalid__',)).get(
+                    '__rowvalid__')
                 if rowvalid is not None:
                     t = {'__rowref__': rowvalid}
             return t
@@ -1908,25 +1922,29 @@ def build_evaluator(cps: CompiledPolicySet, device=None):
         return plan
 
     def evaluate_unique(packed: Dict[str, torch.Tensor], layout):
-        """Unique-space (s_u, d_u, fdet_u), aux channels past n_uniq:
-        K1v for its trees, then the eager walk for the rest."""
+        """Unique-space (s_u, d_u, fdet_u), aux channels past n_uniq,
+        and the admission columns (none when the layout carries no
+        admission lanes): K1v for its trees and the admission match,
+        then the eager walk for trees past a kernel limit."""
         ref = next(iter(packed.values()))
         rows, dev = ref.shape[0], ref.device
-        if vm_trees:
+        program = plan_for(layout).program
+        if program is not None:
             with torch.profiler.record_function('k1v_status_vm'):
-                out = kernels.status_vm(packed, plan_for(layout).program)
+                out = kernels.status_vm(packed, program)
         else:
-            out = outputs(rows, dev, True)
+            out = outputs(rows, dev, True) + (
+                torch.empty((rows, 0), dtype=torch.int8, device=dev),)
         if eager_trees:
             t = plan_for(layout).status_lanes(packed)
             with torch.profiler.record_function('k1_eager_walk'), _walk():
-                place(out, eager_trees, walk_trees(t, eager_trees))
+                place(out[:3], eager_trees, walk_trees(t, eager_trees))
         return out
 
     def evaluate(packed: Dict[str, torch.Tensor], layout):
         """Program-space evaluation (raw consumers: the mesh paths):
         unique results expanded by a device-side column gather."""
-        s_u, d_u, fdet_u = evaluate_unique(packed, layout)
+        s_u, d_u, fdet_u, _adm = evaluate_unique(packed, layout)
         if n_uniq == 0 or expand_identity:
             return s_u, d_u, fdet_u
         with _consts():
@@ -1951,14 +1969,14 @@ def build_evaluator(cps: CompiledPolicySet, device=None):
         # capacity padding.  Per-row outputs for them are sliced off on
         # the host; everything that selects or reduces ACROSS rows
         # masks them here so every occupancy gives bit-identical output.
-        lanes = plan_for(layout).lanes(packed)
+        lanes = plan_for(layout).lanes(packed, ('__rowvalid__', '__match__'))
         rowvalid = lanes.get('__rowvalid__')
         match = lanes['__match__']
         # compact form, all in UNIQUE space (match arrives pre-folded to
         # [R, n_uniq]): ship (statuses|details) as one int8 buffer and
         # the (matched & FAIL) fail-detail cells as [cols | fds]; the
         # host expands duplicates with one gather (expand_compact)
-        s_u, d_u, fdet_u = evaluate_unique(packed, layout)
+        s_u, d_u, fdet_u, adm = evaluate_unique(packed, layout)
         rel_main = (s_u == FAIL) & (match != 0)
         if rowvalid is not None:
             rel_main = rel_main & (rowvalid != 0)[:, None]
@@ -1974,17 +1992,11 @@ def build_evaluator(cps: CompiledPolicySet, device=None):
         with torch.profiler.record_function('k1h_fdet_select'):
             out32 = kernels.fdet_select(rel.contiguous(),
                                         fdet_u.contiguous(), k)
-        out8 = torch.cat([s_u, d_u], dim=1)
-        adm_in = {name: lanes[name] for name in ADM_LANES if name in lanes}
-        if adm_table is not None and len(adm_in) == len(ADM_LANES):
-            # per-row admission match for eligible programs, decided
-            # on device and shipped back as extra int8 columns (the
-            # host replaces its conservative match upper bound with
-            # these before assembly; rows the encoder marked
-            # non-valid are ignored there)
-            with torch.profiler.record_function('k1i_adm_match'), _consts():
-                adm = _adm_match_graph(adm_table, adm_in).to(torch.int8)
-            out8 = torch.cat([out8, adm], dim=1)
+        # per-row admission match for eligible programs, decided in K1v
+        # and shipped back as extra int8 columns (the host replaces its
+        # conservative match upper bound with these before assembly;
+        # rows the encoder marked non-valid are ignored there)
+        out8 = torch.cat([s_u, d_u, adm], dim=1)
         return out8, out32
 
     def call(packed: Dict[str, Any],

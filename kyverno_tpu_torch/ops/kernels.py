@@ -6,8 +6,10 @@ The evaluator (``ops/eval.py``), the device mutate decision
 built by ``ops/_build.py``):
 
 * K1v ``status_vm`` — every unique status tree of a policy set over a
-  packed batch, as one launch of a bytecode interpreter (the bytecode
-  from ``ops/vm.py``); its plain version is the evaluator's eager walk;
+  packed batch, and the per-row admission match (K1i) of its eligible
+  programs, as one launch of a bytecode interpreter (the bytecode from
+  ``ops/vm.py``); its plain version is the evaluator's eager walk and
+  ``_adm_match_graph``;
 * K1h ``fdet_select`` — the compact fail-detail select of
   ``evaluate_packed``: the first k relevant columns of each row and
   their fail details;
@@ -77,13 +79,16 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
 # K1v: the status-program interpreter
 
 def status_vm(packed: Dict[str, torch.Tensor], program
-              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                         torch.Tensor]:
     """``(s_u int8 [R, n_uniq], d_u int8 [R, n_uniq], fdet_u int32
-    [R, n_cols_u])`` of the packed batch ``packed`` (``pack_batch``'s
-    ``pk_*`` buffers, ``[R, W]`` each) under ``program``, K1v's bytecode
-    for one (evaluator, layout) (``ops/vm.py`` ``Program``).  The
-    columns of the program's trees are written; those of trees routed
-    to the eager walk are zero."""
+    [R, n_cols_u], adm int8 [R, n_adm])`` of the packed batch ``packed``
+    (``pack_batch``'s ``pk_*`` buffers, ``[R, W]`` each) under
+    ``program``, K1v's bytecode for one (evaluator, layout)
+    (``ops/vm.py`` ``Program``).  The columns of the program's trees are
+    written, those of trees routed to the eager walk are zero; ``adm``
+    holds the admission match of the policy set's eligible programs
+    (no column when the layout has no admission lanes)."""
     from .vm import BUFFERS
     _check(bool(packed), 'packed holds no buffer')
     ts = list(packed.values())
@@ -112,9 +117,10 @@ def status_vm(packed: Dict[str, torch.Tensor], program
     s_u = make((rows, program.n_uniq), dtype=torch.int8, device=dev)
     d_u = make((rows, program.n_uniq), dtype=torch.int8, device=dev)
     fd_u = make((rows, program.n_cols_u), dtype=torch.int32, device=dev)
+    adm = torch.empty((rows, program.n_adm), dtype=torch.int8, device=dev)
     n_trees = program.trees.shape[0]
     if rows == 0 or n_trees == 0:
-        return s_u, d_u, fd_u
+        return s_u, d_u, fd_u, adm
     import ctypes
     from . import _build
     lib = _build.load('k1_vm')
@@ -126,12 +132,14 @@ def status_vm(packed: Dict[str, torch.Tensor], program
                        tab['i64'].data_ptr(), tab['f64'].data_ptr(),
                        tab['bytes'].data_ptr(), tab['trees'].data_ptr(),
                        n_trees, s_u.data_ptr(), d_u.data_ptr(),
-                       fd_u.data_ptr(), program.n_uniq, program.n_cols_u,
+                       fd_u.data_ptr(),
+                       adm.data_ptr() if program.n_adm else None,
+                       program.n_uniq, program.n_cols_u, program.n_adm,
                        _stream(ts[0]))
     if rc != 0:
         raise RuntimeError(f'k1_vm launch failed: CUDA error {rc}')
     LAUNCHES['k1_vm'] += 1
-    return s_u, d_u, fd_u
+    return s_u, d_u, fd_u, adm
 
 
 # ---------------------------------------------------------------------------

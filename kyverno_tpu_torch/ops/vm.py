@@ -5,9 +5,10 @@ one launch: one thread per (row, tree) runs the tree's instruction
 stream against the packed ``[R, W]`` lane buffers of ``pack_batch``.
 This module turns each tree into that stream.  It mirrors the eager
 walk of ``ops/eval.py`` (``leaf_op_tf``, ``string_term_tf``,
-``cond_tf`` and ``eval_status``) function by function, so the two can
-be read side by side: where the walk builds a ``[R, ...]`` boolean
-tensor, the lowering builds a node that the kernel evaluates per row.
+``cond_tf``, ``_cond_b_tf``, ``eval_status`` and ``_adm_match_graph``)
+function by function, so the two can be read side by side: where the
+walk builds a ``[R, ...]`` boolean tensor, the lowering builds a node
+that the kernel evaluates per row.
 
 Values.  Every value on the kernel's stack is a Kleene pair in two bits
 (bit 0 known-true, bit 1 known-false).  A plain boolean is the known
@@ -19,21 +20,32 @@ walk's boolean algebra and its ``_K`` algebra share one representation.
 Element axes become loops.  Where the walk reduces an ``[R, E]`` or
 ``[R, G]`` tensor over its last axis, the node is a loop over that
 element index (levels 0 and 1 for the two slot element axes, level 2
-for a gather's elements) whose body is reduced into a Kleene
-accumulator.  A lane is read at the indices of the levels it has, so a
-slot shallower than its context broadcasts by construction.
+for a gather's elements, level 3 for a ``foreach`` list element) whose
+body is reduced into a Kleene accumulator.  A lane is read at the
+indices of the levels it has, so a slot shallower than its context
+broadcasts by construction: a per-foreach-element gather
+(``e{k}_*``, ``[R, FE, EG]``) is read at levels (3, 2), its metadata
+(``[R, FE]``) at level 3.
 
 Status trees (PASS/FAIL/SKIP/HOST/SKIP_PRECOND/VAR_ERR, detail, fail
 detail) run on a second stack of ``(s, d, fd)`` triples; ``forall`` and
 ``exists`` are status loops whose accumulator keeps the first failing
 element, the undecidable elements before it and element 0's fail
-detail, exactly as the walk's ``argmax``/``gather`` do.
+detail, exactly as the walk's ``argmax``/``gather`` do.  A ``foreach``
+node folds one loop over its list per entry into a status accumulator
+(``SFEBEGIN``/``SFEENTRY``/``SFEEND``).
+
+The per-row admission match (K1i) is one more entry per eligible
+program of the policy set's admission table: a boolean over the
+``__adm*`` lanes whose ``AEND`` writes the program's int8 admission
+column.
 
 Lowering is per (evaluator, pack layout): lanes resolve to (buffer,
 column, element stride) of the layout, loop widths to its element and
 gather widths.  ``route_trees`` decides at build time, from the IR,
-which trees the kernel takes; ``lower`` binds the kernel's trees to one
-layout.
+which trees the kernel takes: every tree, unless it is past one of the
+kernel's named limits (``_limits``).  ``lower`` binds the kernel's
+trees and the admission entries to one layout.
 """
 
 from __future__ import annotations
@@ -45,6 +57,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..compiler.admission import LANE_NAMES as ADM_LANES
 from ..compiler.ir import (TAG_ARRAY, TAG_BOOL, TAG_FLOAT, TAG_INT, TAG_MAP,
                            TAG_MISSING, TAG_NULL, TAG_STRING, TAIL_LEN,
                            BoolExpr, CondCheck, ElemGather, Leaf, StatusExpr,
@@ -63,6 +76,7 @@ KSTACK = 32         # Kleene stack entries
 SSTACK = 16         # status stack entries
 LOCALS = 16         # let-bound Kleene locals
 FRAMES = 4          # nested loops
+LEVELS = 4          # loop index levels (slot elements 0-1, gather 2, foreach 3)
 MAX_PATTERN = 256   # glob pattern bytes (as K1c)
 MAX_WINDOW = 64     # str_head bytes (the glob DP's 64-bit masks)
 
@@ -72,7 +86,8 @@ OPS = ('K', 'TAG', 'LB', 'CI', 'ABSLE', 'F64', 'F64DUR', 'BYTES', 'GLOB',
        'BLOCK', 'MASK', 'FIXF', 'BOR', 'BLOCKT', 'BLOCKF', 'STORE', 'LOAD',
        'LOOP', 'ENDLOOP', 'SCONST', 'SFROMK', 'SVARERR', 'SFAILGUARD',
        'STRACKFAIL', 'SSEQ', 'SANY', 'SEQUALITY', 'SCOND', 'SLOOP',
-       'SENDLOOP', 'SFORALL', 'SEXISTS', 'SSCALARS', 'END')
+       'SENDLOOP', 'SFORALL', 'SEXISTS', 'SSCALARS', 'END', 'SUSP',
+       'IDXLAST', 'PACK2', 'IDIN', 'SFEBEGIN', 'SFEENTRY', 'SFEEND', 'AEND')
 OP = {name: i for i, name in enumerate(OPS)}
 #: comparison codes (k1_vm.cuh k1vm_cmp)
 CMP = {'>': 0, '>=': 1, '<': 2, '<=': 3, '==': 4, '!=': 5}
@@ -82,9 +97,13 @@ RED_AND, RED_OR, RED_BOR = 0, 1, 2
 BUFFERS = (('pk_uint8', 'uint8'), ('pk_int8', 'int8'), ('pk_bool', 'bool'),
            ('pk_int32', 'int32'), ('pk_int64', 'int64'))
 _BUF_INDEX = {name: i for i, (name, _dt) in enumerate(BUFFERS)}
-#: int32 words per instruction and per lane-table entry
+#: int32 words per instruction and per lane-table entry; a lane is
+#: (buffer, column, stride, c0, c1, c2, constant, c3): element
+#: c0*i0 + c1*i1 + c2*i2 + c3*i3 + constant of the loop indices
 INSN_WORDS = 6
 LANE_WORDS = 8
+#: the foreach list element's loop level
+FE_LEVEL = 3
 
 _BYTE_LANES = frozenset({'str_head', 'str_tail'})
 _CONV = (TAG_STRING, TAG_INT, TAG_FLOAT, TAG_BOOL)
@@ -229,7 +248,8 @@ class View:
     """Lanes of one slot, array node or gather, read at the indices of
     the enclosing loops (the eager ``_View``).  ``levels`` are the loop
     levels of the lane's element axes (slots and arrays: 0, 1; a gather:
-    2); ``fixed`` pins a gather's element index (``_View(t, p, i)``)."""
+    2; a per-foreach-element gather: 3, 2); ``fixed`` pins the last
+    element axis, a gather's element index (``_View(t, p, i)``)."""
 
     def __init__(self, lw: 'Lowering', prefix: str, levels: Tuple[int, ...],
                  fixed: Optional[int] = None):
@@ -251,20 +271,23 @@ class View:
         byte = name in _BYTE_LANES
         stride = tail[-1] if byte else 1
         dims = tail[:-1] if byte else tail
-        coef = [0, 0, 0, 0]
-        if self.fixed is not None:
-            if len(dims) != 1:
-                raise LoweringError(f'{full}: fixed index on {tail}')
-            coef[3] = self.fixed
-        else:
-            if len(dims) > len(self.levels):
-                raise LoweringError(f'{full}: {len(dims)} element axes '
-                                    f'in a view of {len(self.levels)}')
-            mult = 1
-            for lvl, n in reversed(list(zip(self.levels, dims))):
+        coef = [0] * LEVELS
+        const = 0
+        if self.fixed is not None and len(dims) != len(self.levels):
+            raise LoweringError(f'{full}: fixed index on {tail}')
+        if len(dims) > len(self.levels):
+            raise LoweringError(f'{full}: {len(dims)} element axes '
+                                f'in a view of {len(self.levels)}')
+        mult = 1
+        axes = list(zip(self.levels, dims))
+        for k in range(len(axes) - 1, -1, -1):
+            lvl, n = axes[k]
+            if self.fixed is not None and k == len(axes) - 1:
+                const = self.fixed * mult
+            else:
                 coef[lvl] = mult
-                mult *= n
-        return self.lw.lane(buf, off + start, stride, coef)
+            mult *= n
+        return self.lw.lane(buf, off + start, stride, coef, const)
 
     def width(self, name: str) -> int:
         return self.lw.L.entry(f'{self.p}_{name}')[3][-1]
@@ -292,12 +315,22 @@ class View:
         """``(lane.to(float64) / div) cmp value``."""
         return X('F64', self.ref(name), CMP[cmp], float(value), float(div))
 
-    def f64dur(self, cmp: str, value: float) -> X:
-        """``trunc((milli.to(float64) / 1000.0) * 1e9) / 1e9 cmp value``."""
-        return X('F64DUR', self.ref('milli'), CMP[cmp], float(value))
+    def f64dur(self, cmp: str, value: float, nanos: bool = False) -> X:
+        """``trunc((milli.to(float64) / 1000.0) * 1e9) / 1e9 cmp value``;
+        with ``nanos``, the truncated product itself against ``value``."""
+        return X('F64DUR', self.ref('milli'), CMP[cmp], float(value),
+                 int(nanos))
 
     def bytes_eq(self, name: str, start: int, const: bytes) -> X:
         return X('BYTES', self.ref(name, start), bytes(const))
+
+    def suspicious(self) -> X:
+        """The eager ``_suspicious_scalar``: a '-' in the value, a '['
+        after only whitespace, a wildcard, or a value past the window."""
+        susp = X('SUSP', self.ref('str_head'), self.ref('str_len'))
+        if self.has('has_wild'):
+            susp = susp | self.b('has_wild')
+        return susp
 
     @property
     def tag_missing(self) -> X:
@@ -887,6 +920,136 @@ def cond(lw: 'Lowering', prefix: str, check: CondCheck) -> X:
 
 
 # ---------------------------------------------------------------------------
+# conditions — eval._cond_b_tf and _b_equals (mode B: a constant key
+# against a per-foreach-element gathered value)
+
+def _b_equals(sv: View, key: Any, scalar: X) -> X:
+    """operators._equal(const_key, gathered_value)."""
+    if isinstance(key, bool):
+        nz = sv.cmp('milli', '!=', 0)
+        tv = scalar & sv.is_tag(TAG_BOOL) & (nz if key else ~nz)
+        return pair(tv, ~tv)
+    f53 = 1 << 53
+    if isinstance(key, (int, float)):
+        kf = Fraction(str(key)) * 1000
+        if kf.denominator == 1 and abs(kf) <= _I64_MAX:
+            num_t = sv.numish & sv.b('milli_ok') & \
+                sv.cmp('milli', '==', int(kf))
+        else:
+            num_t = KF
+        mok53 = sv.b('milli_ok') & sv.abs_le('milli', f53)
+        is_flt = sv.is_tag(TAG_STRING) & sv.b('str_is_float')
+        str_t = is_flt & mok53 & sv.f64('milli', 1000.0, '==', float(key))
+        str_u = is_flt & ~mok53
+        num_u = sv.numish & ~sv.b('milli_ok')
+        return tu(scalar & (num_t | str_t), scalar & (num_u | str_u))
+    if isinstance(key, str):
+        is_str = sv.is_tag(TAG_STRING)
+        try:
+            kd = parse_duration(key) if key != '0' else None
+        except (ValueError, TypeError):
+            kd = None
+        if kd is not None:
+            v_dur = is_str & sv.b('str_is_dur') & ~sv.b('lit_zero')
+            if abs(kd) <= _I64_MAX:
+                dur_t = v_dur & sv.b('nanos_ok') & sv.cmp('nanos', '==', kd)
+                dur_u = v_dur & ~sv.b('nanos_ok')
+                mok53 = sv.b('milli_ok') & sv.abs_le('milli', f53)
+                num_t = sv.numish & mok53 & \
+                    sv.f64dur('==', float(kd), nanos=True)
+                num_u = sv.numish & ~mok53
+            else:
+                dur_t = num_t = KF
+                dur_u = v_dur
+                num_u = sv.numish
+            rest = is_str & ~v_dur
+        else:
+            dur_t = dur_u = num_t = num_u = KF
+            rest = is_str
+        try:
+            kq = Quantity.parse(key)
+        except ValueError:
+            kq = None
+        wild_zone = None
+        if kq is not None:
+            m = kq.value * 1000
+            if m.denominator == 1 and abs(m.numerator) <= _I64_MAX:
+                qty_t = rest & sv.b('str_is_qty') & sv.b('milli_ok') & \
+                    sv.cmp('milli', '==', int(m))
+            else:
+                qty_t = KF
+            qty_u = rest & sv.b('str_is_qty') & ~sv.b('milli_ok')
+        else:
+            qty_t = qty_u = KF
+            wild_zone = rest
+        if wild_zone is None:
+            return tu(scalar & (dur_t | num_t | qty_t),
+                      scalar & (dur_u | num_u | qty_u))
+        # wildcard: match(value_as_pattern, K), equality unless wild
+        hw = sv.b('has_wild') if sv.has('has_wild') else KF
+        return let(sv.eq_const(key), lambda w_eq: tu(
+            scalar & (dur_t | num_t | qty_t | (wild_zone & tof(w_eq))),
+            scalar & (dur_u | num_u | qty_u |
+                      (wild_zone & ~tof(w_eq) & hw))))
+    # None / list / dict const keys: _equal is False for gathered scalars
+    return pair(KF, KT)
+
+
+def cond_b(lw: 'Lowering', prefix: str, check: CondCheck) -> X:
+    """Mode-B checks: constant key vs gathered value (foreach conditions
+    like ``key: ALL, value: {{element...drop[]}}``)."""
+    op = check.op
+    key = check.key_const
+    meta = lw.row_view(prefix)
+    kind_is = lambda k: meta.cmp('kind', '==', k)   # noqa: E731
+    overflow = meta.b('overflow')
+    sv = lw.gather_view(prefix).at(0)
+    ev = lw.gather_view(prefix)
+    if op in ('equal', 'equals', 'notequal', 'notequals'):
+        res = _b_equals(sv, key, kind_is(1))
+        if op in ('notequal', 'notequals'):
+            res = ~res
+    elif key is None or isinstance(key, bool):
+        # host: key not str/num/list → False for every variant
+        res = pair(KF, KT)
+    else:
+        # anyin / allin / anynotin / allnotin with a scalar const key
+        negate = op in ('anynotin', 'allnotin')
+        ks = key if isinstance(key, str) else _sprint(key)
+        # value list: ∃ element matching either direction
+        em = let(ev.eq_const(ks), lambda m_eq: let(
+            ev.match_const_pattern(ks), lambda m_pat: pair(
+                tof(m_eq) | tof(m_pat),
+                fof(m_eq) & fof(m_pat) &
+                (~ev.b('has_wild') if ev.has('has_wild') else KT))))
+        valid = X('IDXLT', meta.ref('count'), 2)
+        lst = blockf(lw.loop(2, ev.width('tag'), RED_OR,
+                             let(em, lambda e: pair(valid & tof(e),
+                                                    ~valid | fof(e)))),
+                     overflow)
+        # value scalar string: equality unless the value could be a
+        # wildcard/range/JSON form at runtime
+        is_str = sv.is_tag(TAG_STRING)
+        scalar_str = kind_is(1) & is_str
+        inv = (kind_is(1) & ~is_str) | kind_is(0)
+
+        def result(ls, s_eq):
+            r_t = (kind_is(2) & tof(ls)) | (scalar_str & is_str & tof(s_eq))
+            r_f = (kind_is(2) & fof(ls)) | \
+                (scalar_str & is_str & fof(s_eq) & ~sv.suspicious()) | inv
+            return let(r_t, lambda rt: pair(rt, r_f & ~rt))
+
+        res = let(lst, lambda ls: let(sv.eq_const(ks),
+                                      lambda s_eq: result(ls, s_eq)))
+        if negate:
+            # r=None (invalid value types) stays False, not True
+            res = let(res, lambda r: let(fof(r) & ~inv, lambda nt: pair(
+                nt, (tof(r) | inv) & ~nt)))
+    bad = meta.b('notfound') | (kind_is(0) & overflow)
+    return block(res, bad)
+
+
+# ---------------------------------------------------------------------------
 # status trees — eval.eval_expr / eval_status
 
 class Lowering:
@@ -902,15 +1065,23 @@ class Lowering:
 
     # lanes -----------------------------------------------------------------
 
-    def lane(self, buf: str, off: int, stride: int, coef) -> int:
+    def lane(self, buf: str, off: int, stride: int, coef,
+             const: int = 0) -> int:
         if buf not in _BUF_INDEX:
             raise LoweringError(f'unknown packed buffer {buf}')
-        key = (_BUF_INDEX[buf], off, stride) + tuple(coef)
+        key = (_BUF_INDEX[buf], off, stride, coef[0], coef[1], coef[2],
+               const, coef[3])
         hit = self.lanes.get(key)
         if hit is None:
             hit = self.lanes[key] = len(self.lane_rows)
-            self.lane_rows.append(key + (0,))
+            self.lane_rows.append(key)
         return hit
+
+    def special(self, name: str, j: int = 0) -> int:
+        """Element ``j`` of a per-row special lane (``__adm*``)."""
+        buf, off, _width, _tail = self.L.entry(name)
+        self.read.add((name, None))
+        return self.lane(buf, off + j, 1, [0] * LEVELS)
 
     def slot_view(self, slot) -> View:
         return View(self, self.info.slot_prefix[slot],
@@ -921,10 +1092,14 @@ class Lowering:
         return View(self, self.info.array_prefix[path], tuple(range(depth)))
 
     def gather_view(self, prefix: str) -> View:
-        return View(self, prefix, (2,))
+        """A gather's elements: level 2, under the foreach list element
+        (level 3) for a per-foreach-element gather."""
+        return View(self, prefix, (FE_LEVEL, 2) if prefix[0] == 'e'
+                    else (2,))
 
     def row_view(self, prefix: str) -> View:
-        return View(self, prefix, ())
+        """A gather's metadata: per row, or per foreach list element."""
+        return View(self, prefix, (FE_LEVEL,) if prefix[0] == 'e' else ())
 
     def loop(self, level: int, width: int, red: int, body: X) -> X:
         return X('LOOP', level, width, red, body)
@@ -954,10 +1129,13 @@ class Lowering:
             return self.leaf(expr.leaf, depth)
         if expr.kind == 'cond':
             check = expr.cond
-            if check.value_gather is not None or \
-                    isinstance(check.gather, ElemGather):
-                raise LoweringError('element-gather condition')
-            return cond(self, self.info.gather_prefix[check.gather], check)
+            if check.value_gather is not None:
+                return cond_b(self, self.info.elem_prefix[check.value_gather],
+                              check)
+            prefix = self.info.elem_prefix[check.gather] \
+                if isinstance(check.gather, ElemGather) \
+                else self.info.gather_prefix[check.gather]
+            return cond(self, prefix, check)
         if expr.kind in ('any_elem', 'all_elem'):
             sub = self.expr(expr.children[0], depth + 1)
             meta = self.array_view(expr.slot.path)
@@ -1053,7 +1231,116 @@ class Lowering:
         if kind == 'trackfail':
             return X('STRACKFAIL', self.status(node.sub, depth, aux),
                      self.expr(node.expr, depth))
+        if kind == 'foreach':
+            if depth != 0:
+                raise LoweringError('foreach below the top level')
+            return X('SFOREACH', tuple(self.foreach_entry(e)
+                                       for e in node.operand))
         raise LoweringError(f'status kind {kind!r}')
+
+    def foreach_entry(self, entry) -> Tuple[X, X, X]:
+        """One entry of a ``foreach`` node (the eager ``eval_status``
+        'foreach' branch): whether its list query resolved (``active``),
+        its overflow, and a loop over the list's elements whose bitwise
+        OR holds, per valid element, FAIL | PASS << 1 | undecidable << 2
+        | (the last element errs) << 3.  Conditions are evaluated at
+        depth 0; a const-folded one reads no level-3 lane and so
+        broadcasts over the elements (the walk's ``at_elem``)."""
+        lp = self.info.gather_prefix[entry.list_gather]
+        meta = self.row_view(lp)
+        elems = View(self, lp, (FE_LEVEL,))
+        # null elements are skipped
+        valid = X('IDXLT', meta.ref('count'), FE_LEVEL) & \
+            ~elems.is_tag(TAG_NULL)
+        # element variable errors (first missing var → ERROR element)
+        errs = [self.row_view(self.info.elem_prefix[eg]).b('notfound')
+                for eg in entry.err_gathers]
+        elem_err = k_any(errs) if errs else KF
+        pre = self.expr(entry.precond, 0) if entry.precond is not None \
+            else KT
+        deny = self.expr(entry.deny, 0)
+        # an ERROR element returns only at the true last index
+        last = X('IDXLAST', meta.ref('count'), FE_LEVEL)
+
+        def body(v, e, p, d):
+            ok = v & ~e
+            return X('PACK2',
+                     pair(ok & tof(p) & tof(d), ok & tof(p) & fof(d)),
+                     pair(ok & (uof(p) | (tof(p) & uof(d))), v & e & last))
+
+        elem = let(valid, lambda v: let(elem_err, lambda e: let(
+            pre, lambda p: let(deny, lambda d: body(v, e, p, d)))))
+        loop = self.loop(FE_LEVEL, elems.width('tag'), RED_BOR, elem)
+        return ~meta.cmp('kind', '==', 0), meta.b('overflow'), loop
+
+
+# ---------------------------------------------------------------------------
+# the per-row admission match — eval._adm_match_graph (K1i)
+
+def adm_entry(lw: Lowering, prog) -> X:
+    """The admission match of one eligible program (``compiler/
+    admission.py`` ``AdmProgram``): the static filter tree over the
+    resource-shape atoms and the per-row user-info id lanes, as a known
+    boolean (match & ~exclude)."""
+    def flag(name):
+        return X('LB', lw.special(name))
+
+    def member(name, ids):
+        # ∃ lane value ∈ ids (ids ≥ 0; -1 marks an absent slot)
+        width = int(np.prod(lw.L.entry(name)[3], dtype=np.int64))
+        return X('IDIN', lw.special(name), width, tuple(int(i) for i in ids))
+
+    excluded = flag('__adm_excluded__')
+    hasinfo = flag('__adm_hasinfo__')
+
+    def ui_ok(f):
+        # excluded users skip role gates entirely, and ride the
+        # exclude-group-roles Group subjects the host matcher appends
+        ok = None
+        if f.has_roles:
+            hit = member('__adm_roles__', f.roles) if f.roles else KF
+            ok = excluded | hit
+        if f.has_croles:
+            hit = member('__adm_croles__', f.cluster_roles) \
+                if f.cluster_roles else KF
+            ok = (excluded | hit) if ok is None else ok & (excluded | hit)
+        if f.has_subjects:
+            hit = KF
+            if f.subjects_ug:
+                # User/Group names match any of groups ∪ {username}
+                hit = hit | member('__adm_groups__', f.subjects_ug) | \
+                    member('__adm_user__', f.subjects_ug)
+            if f.subjects_sa:
+                hit = hit | member('__adm_user__', f.subjects_sa)
+            sub = hit | excluded
+            ok = sub if ok is None else ok & sub
+        return ok if ok is not None else KT
+
+    def filter_ok(f, mode):
+        res_ok = X('LB', lw.special('__admres__', f.atom))
+        if mode == 'match':
+            # without admission info the matcher drops user info: a
+            # filter reduced to nothing is 'match cannot be empty'
+            if not f.has_ui:
+                return res_ok if f.has_res else KF
+            without = res_ok if f.has_res else KF
+            return (hasinfo & res_ok & ui_ok(f)) | (~hasinfo & without)
+        # exclude mode: user info always applies; an empty filter
+        # never excludes (folded to 'none' at compile time)
+        if not f.has_ui and not f.has_res:
+            return KF
+        return res_ok & ui_ok(f) if f.has_ui else res_ok
+
+    def combine(kind, oks):
+        if kind == 'none' or not oks:
+            return KF
+        return k_all(oks) if kind == 'all' else k_any(oks)
+
+    m = combine(prog.match_kind,
+                [filter_ok(f, 'match') for f in prog.match_filters])
+    e = combine(prog.exclude_kind,
+                [filter_ok(f, 'exclude') for f in prog.exclude_filters])
+    return m & ~e
 
 
 def _nth_star_prefix(path: Tuple[str, ...], lvl: int) -> Tuple[str, ...]:
@@ -1104,6 +1391,15 @@ class _Gen:
             self.f64.append(v)
         return hit
 
+    def i64_block(self, values: Tuple[int, ...]) -> int:
+        """Start of ``values`` laid out consecutively in the int64 pool."""
+        key = ('block',) + tuple(values)
+        hit = self._i64.get(key)
+        if hit is None:
+            hit = self._i64[key] = len(self.i64)
+            self.i64.extend(values)
+        return hit
+
     def bytes_index(self, b: bytes) -> int:
         hit = self._bytes.get(b)
         if hit is None:
@@ -1150,7 +1446,7 @@ class _Gen:
                      self.f64_index(a[3]))
             self.push_k()
         elif op == 'F64DUR':
-            self.put('F64DUR', a[0], a[1], self.f64_index(a[2]))
+            self.put('F64DUR', a[0], a[1], self.f64_index(a[2]), a[3])
             self.push_k()
         elif op == 'BYTES':
             self.put('BYTES', a[0], 0, self.bytes_index(a[1]), len(a[1]))
@@ -1160,14 +1456,17 @@ class _Gen:
             self.put('GLOB', a[0], a[1], a[2], self.bytes_index(a[3]),
                      len(a[3]))
             self.push_k()
-        elif op == 'IDXLT':
-            self.put('IDXLT', a[0], a[1])
+        elif op in ('IDXLT', 'IDXLAST', 'SUSP'):
+            self.put(op, a[0], a[1])
+            self.push_k()
+        elif op == 'IDIN':
+            self.put('IDIN', a[0], a[1], self.i64_block(a[2]), len(a[2]))
             self.push_k()
         elif op in ('NOT', 'TOF', 'FOF', 'UOF', 'FIXF'):
             self.kleene(a[0])
             self.put(op)
         elif op in ('AND', 'OR', 'PAIR', 'TU', 'BLOCK', 'MASK', 'BOR',
-                    'BLOCKT', 'BLOCKF'):
+                    'BLOCKT', 'BLOCKF', 'PACK2'):
             self.kleene(a[0])
             self.kleene(a[1])
             self.put(op)
@@ -1268,6 +1567,16 @@ class _Gen:
             self.code[start][4] = len(self.code)
             self.push_s()
             self.put(op, a[1], a[2], a[3])
+        elif op == 'SFOREACH':
+            self.put('SFEBEGIN')
+            self.push_s()
+            for active, overflow, loop in a[0]:
+                self.kleene(active)
+                self.kleene(overflow)
+                self.kleene(loop)
+                self.put('SFEENTRY')
+                self.k -= 3
+            self.put('SFEEND')
         else:
             raise LoweringError(f'not a status node: {op}')
 
@@ -1279,19 +1588,33 @@ class _Gen:
         assert self.k == 0 and self.s == 0 and self.frames == 0
         return start
 
+    def adm(self, x: X, col: int) -> int:
+        """An admission entry: a Kleene value whose ``AEND`` writes its
+        known-true bit into admission column ``col``."""
+        start = len(self.code)
+        self.kleene(x)
+        self.put('AEND', col)
+        self.k -= 1
+        assert self.k == 0 and self.s == 0 and self.frames == 0
+        return start
+
 
 # ---------------------------------------------------------------------------
 # routing (build time) and lowering (per layout)
 
 class TreeInfo:
     """What the lowering needs of an evaluator: the prefixes of its
-    slots, arrays and gathers, its unique trees and their aux columns."""
+    slots, arrays, gathers and per-foreach-element gathers, its unique
+    trees and their aux columns, and its admission table (None without
+    admission-dependent rules)."""
 
     def __init__(self, cps, uniq_trees, uniq_aux_base, n_uniq: int,
-                 n_cols_u: int):
+                 n_cols_u: int, adm_table=None):
         from ..compiler.encode import _needs_cached
         self.slot_prefix = {slot: f's{i}' for i, slot in enumerate(cps.slots)}
         self.gather_prefix = {g: f'g{k}' for k, g in enumerate(cps.gathers)}
+        self.elem_prefix = {g: f'e{k}'
+                            for k, g in enumerate(cps.elem_gathers)}
         _, _, _, array_paths = _needs_cached(cps)
         self.array_prefix = {path: f'a{j}'
                              for j, path in enumerate(array_paths)}
@@ -1299,41 +1622,45 @@ class TreeInfo:
         self.aux_base = list(uniq_aux_base)
         self.n_uniq = n_uniq
         self.n_cols_u = n_cols_u
+        self.adm_table = adm_table
 
 
-def _has_foreach(node: StatusExpr) -> bool:
-    if node.kind == 'foreach':
-        return True
-    return any(_has_foreach(c) for c in node.children) or \
-        (node.sub is not None and _has_foreach(node.sub))
+def has_adm_lanes(layout: Dict) -> bool:
+    return all(name in layout for name in ADM_LANES)
 
 
 class Program:
     """K1v's bytecode for one (evaluator, layout): the instruction
-    stream, lane table, pools and per-tree entry points, as numpy
-    arrays; ``device_tables`` keeps them on each device once."""
+    stream, lane table, pools and per-entry points, as numpy arrays;
+    ``device_tables`` keeps them on each device once.  An entry is a
+    status tree (its ``END`` writes unique column ``col``) or the
+    admission match of an eligible program (its ``AEND`` writes
+    admission column ``col``)."""
 
     def __init__(self, gen: _Gen, lanes: List[Tuple[int, ...]],
                  trees: List[Tuple[int, int]], vm_cols: List[int],
-                 n_uniq: int, n_cols_u: int):
+                 n_uniq: int, n_cols_u: int, n_adm: int = 0):
         self.code = np.asarray(gen.code, np.int32).reshape(-1, INSN_WORDS)
         self.lanes = np.asarray(lanes, np.int32).reshape(-1, LANE_WORDS)
         self.i64 = np.asarray(gen.i64 or [0], np.int64)
         self.f64 = np.asarray(gen.f64 or [0.0], np.float64)
         self.bytes = np.frombuffer(bytes(gen.bytes) or b'\0',
                                    np.uint8).copy()
-        #: per kernel tree: (first instruction, unique column)
+        #: per kernel entry: (first instruction, unique or admission
+        #: column); the status trees first, then the admission entries
         self.trees = np.asarray(trees, np.int32).reshape(-1, 2)
         self.vm_cols = list(vm_cols)
         self.n_uniq = n_uniq
         self.n_cols_u = n_cols_u
+        #: admission columns (``AdmissionTable.program_cols()`` order)
+        self.n_adm = n_adm
         self.depths = {'kstack': gen.max_k, 'sstack': gen.max_s,
                        'frames': gen.max_frames, 'locals': gen.max_locals}
         #: bytes of the packed lanes the bytecode reads, per row, and the
         #: layout it was lowered against (set by ``lower``)
         self.row_bytes = 0
         self.layout = None
-        #: instructions one row executes over all the program's trees
+        #: instructions one row executes over all the program's entries
         self.row_insns = gen.dyn
         self._dev: Dict[Any, Dict[str, Any]] = {}
 
@@ -1360,9 +1687,11 @@ def _limits(gen: _Gen) -> Optional[str]:
     return None
 
 
-def _lower_trees(info: TreeInfo, layout: Layout, trees: Sequence[int]):
-    """Lower unique trees ``trees`` into one instruction stream with one
-    lane table: (gen, (lanes, lane rows, lanes read), [(entry pc, u)])."""
+def _lower_trees(info: TreeInfo, layout: Layout, trees: Sequence[int],
+                 adm: bool = False):
+    """Lower unique trees ``trees`` (and, with ``adm``, the admission
+    entries) into one instruction stream with one lane table: (gen,
+    (lanes, lane rows, lanes read), [(entry pc, column)])."""
     gen = _Gen()
     tables = ({}, [], set())
     entries: List[Tuple[int, int]] = []
@@ -1370,24 +1699,27 @@ def _lower_trees(info: TreeInfo, layout: Layout, trees: Sequence[int]):
         lw = Lowering(info, layout, tables)
         node = lw.status(info.trees[u], 0, [info.n_uniq + info.aux_base[u]])
         entries.append((gen.tree(node, u), u))
+    if adm:
+        for col, prog in enumerate(info.adm_table.programs):
+            lw = Lowering(info, layout, tables)
+            entries.append((gen.adm(adm_entry(lw, prog), col), col))
     return gen, tables, entries
 
 
 def route_trees(info: TreeInfo, probe_layout: Dict) -> Dict[int, Tuple[str, str]]:
     """``{unique tree: ('vm' | 'eager', reason)}``, decided once per
-    evaluator from the IR: ``foreach`` trees (the only source of
-    element gathers and mode-B conditions) and trees past one of the
-    kernel's fixed limits (``_limits``) stay on the eager walk.  The
-    limits are read from a trial lowering against ``probe_layout`` (the
-    policy set's lanes at the encoder's smallest widths); stack and loop
-    depths and pattern lengths do not depend on the widths.  Any other
-    tree the lowering cannot take raises ``LoweringError``."""
+    evaluator from the IR.  Routes come from the kernel's named limits
+    only (``_limits``: stack depths, loop nesting, locals, glob pattern
+    bytes): a tree past one of them stays on the eager walk, every
+    other tree, ``foreach`` trees included, goes to K1v.  The limits
+    are read from a trial lowering against ``probe_layout`` (the policy
+    set's lanes at the encoder's smallest widths); stack and loop
+    depths and pattern lengths do not depend on the widths.  A tree the
+    lowering cannot take raises ``LoweringError``: no construct is
+    routed to the eager walk."""
     layout = Layout(probe_layout)
     routes: Dict[int, Tuple[str, str]] = {}
-    for u, tree in enumerate(info.trees):
-        if _has_foreach(tree):
-            routes[u] = ('eager', 'foreach')
-            continue
+    for u in range(len(info.trees)):
         gen, _tables, _entries = _lower_trees(info, layout, [u])
         over = _limits(gen)
         routes[u] = ('eager', over) if over else ('vm', 'lowered')
@@ -1398,24 +1730,32 @@ _ESIZE = {'uint8': 1, 'int8': 1, 'bool': 1, 'int32': 4, 'int64': 8}
 
 
 def _row_bytes(layout: Dict, read) -> int:
-    """Bytes per row of the lanes in ``read``: a whole lane, or one
-    element of a gather lane read at a fixed index."""
+    """Bytes per row of the lanes in ``read``: a whole lane, or the
+    lane at one fixed index of its last element axis."""
     total = 0
     for name, fixed in read:
         buf, _off, width, tail = layout[name]
         esize = _ESIZE[buf[len('pk_'):]]
-        total += (width // tail[0] if fixed is not None else width) * esize
+        if fixed is not None:
+            last = tail[-2] if name.rsplit('_', 1)[-1] in ('head', 'tail') \
+                else tail[-1]
+            width //= last
+        total += width * esize
     return total
 
 
 def lower(info: TreeInfo, vm_trees: Sequence[int], layout: Dict) -> Program:
-    """K1v's program for the trees ``vm_trees`` against ``layout``."""
-    gen, tables, entries = _lower_trees(info, Layout(layout), vm_trees)
+    """K1v's program for the trees ``vm_trees`` against ``layout``, plus
+    one admission entry per eligible program when the policy set has an
+    admission table and the layout carries the admission lanes."""
+    adm = info.adm_table is not None and has_adm_lanes(layout)
+    gen, tables, entries = _lower_trees(info, Layout(layout), vm_trees, adm)
     over = _limits(gen)
     if over:
         raise LoweringError(f'K1v limit exceeded at this layout: {over}')
     prog = Program(gen, tables[1], entries, list(vm_trees), info.n_uniq,
-                   info.n_cols_u)
+                   info.n_cols_u,
+                   len(info.adm_table.programs) if adm else 0)
     prog.row_bytes = _row_bytes(layout, tables[2])
     prog.layout = layout
     return prog

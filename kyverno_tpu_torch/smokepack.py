@@ -19,6 +19,19 @@ with a realistic violation mix from a ``random.Random``.
   ``bench.py``.  Three policies that all lower to device edit sites; about
   10 % of the generated Pods take the per-row FALLBACK path (a json6902
   replace on a missing annotation).
+* ``RESTRICTED_FOREACH_PACK``: Kyverno's restricted chart's
+  ``disallow-capabilities-strict`` (charts/kyverno-policies with
+  ``podSecurityStandard: restricted``), its two ``validate.foreach`` +
+  ``deny`` rules ``require-drop-all`` and ``adding-capabilities-strict``,
+  verbatim from the JAX package's ``tests/test_foreach_compile.py``.
+* ``ADMISSION_LANES_PACK`` and ``ADMISSIONS``: rules that match or
+  exclude by subject, role and cluster role, and admission tuples that
+  decide each of their branches, verbatim from the JAX package's
+  ``tests/test_admission_lanes.py``.
+* ``load_restricted_pack`` and ``make_restricted_pod``: the smoke pack
+  with both of those, and Pods with the restricted chart's capability
+  mix (``make_config4_pod`` plus ``test_foreach_compile.make_pod``'s
+  capabilities, init and ephemeral containers).
 """
 
 from __future__ import annotations
@@ -339,6 +352,158 @@ spec:
 """
 
 
+# tests/test_foreach_compile.py PACK, its first two policies, verbatim
+RESTRICTED_FOREACH_PACK = """
+apiVersion: kyverno.io/v1
+kind: ClusterPolicy
+metadata:
+  name: require-drop-all
+  annotations: {pod-policies.kyverno.io/autogen-controllers: none}
+spec:
+  rules:
+    - name: require-drop-all
+      match: {any: [{resources: {kinds: [Pod]}}]}
+      preconditions:
+        all:
+        - key: "{{ request.operation || 'BACKGROUND' }}"
+          operator: NotEquals
+          value: DELETE
+      validate:
+        message: Containers must drop `ALL` capabilities.
+        foreach:
+          - list: request.object.spec.[ephemeralContainers, initContainers, containers][]
+            deny:
+              conditions:
+                all:
+                - key: ALL
+                  operator: AnyNotIn
+                  value: "{{ element.securityContext.capabilities.drop[] || `[]` }}"
+---
+apiVersion: kyverno.io/v1
+kind: ClusterPolicy
+metadata:
+  name: adding-capabilities-strict
+  annotations: {pod-policies.kyverno.io/autogen-controllers: none}
+spec:
+  rules:
+    - name: adding-capabilities-strict
+      match: {any: [{resources: {kinds: [Pod]}}]}
+      validate:
+        message: Any capabilities added other than NET_BIND_SERVICE are disallowed.
+        foreach:
+          - list: request.object.spec.[ephemeralContainers, initContainers, containers][]
+            deny:
+              conditions:
+                all:
+                - key: "{{ element.securityContext.capabilities.add[] || `[]` }}"
+                  operator: AnyNotIn
+                  value:
+                  - NET_BIND_SERVICE
+"""
+
+# tests/test_admission_lanes.py POLICIES, verbatim
+ADMISSION_LANES_PACK = """
+apiVersion: kyverno.io/v1
+kind: ClusterPolicy
+metadata:
+  name: require-team
+  annotations: {pod-policies.kyverno.io/autogen-controllers: none}
+spec:
+  validationFailureAction: enforce
+  rules:
+    - name: require-team
+      match: {any: [{resources: {kinds: [Pod]}}]}
+      validate:
+        message: "label 'team' is required"
+        pattern:
+          metadata: {labels: {team: "?*"}}
+---
+apiVersion: kyverno.io/v1
+kind: ClusterPolicy
+metadata:
+  name: admins-only-privileged
+  annotations: {pod-policies.kyverno.io/autogen-controllers: none}
+spec:
+  validationFailureAction: enforce
+  rules:
+    - name: admins-only
+      match:
+        any:
+          - resources: {kinds: [Pod]}
+            subjects:
+              - {kind: Group, name: system:masters}
+              - {kind: User, name: alice}
+              - {kind: ServiceAccount, name: deployer, namespace: ci}
+      validate: {message: "privileged path is admin-only", deny: {}}
+---
+apiVersion: kyverno.io/v1
+kind: ClusterPolicy
+metadata:
+  name: exempt-bots
+  annotations: {pod-policies.kyverno.io/autogen-controllers: none}
+spec:
+  validationFailureAction: enforce
+  rules:
+    - name: exempt-bots
+      match: {any: [{resources: {kinds: [Pod]}, clusterRoles: [bot-role]}]}
+      exclude: {any: [{subjects: [{kind: Group, name: trusted-bots}]}]}
+      validate: {message: "bots must be trusted", deny: {}}
+---
+apiVersion: kyverno.io/v1
+kind: ClusterPolicy
+metadata:
+  name: roles-gate
+  annotations: {pod-policies.kyverno.io/autogen-controllers: none}
+spec:
+  validationFailureAction: enforce
+  rules:
+    - name: roles-gate
+      match:
+        all:
+          - resources: {kinds: [Pod]}
+            roles: [ns-admin]
+      validate: {message: "role-gated", deny: {}}
+"""
+
+
+# tests/test_admission_lanes.py adm and ADMISSIONS, verbatim: (admission
+# info, exclude-group roles, namespace labels, operation) per request
+def adm(username, groups=(), roles=(), croles=(), egr=(), op='CREATE'):
+    info = {'roles': list(roles), 'clusterRoles': list(croles),
+            'userInfo': {'username': username, 'groups': list(groups)}}
+    return (info, list(egr), {}, op)
+
+
+ADMISSIONS = [
+    adm('alice'),                                       # User subject
+    adm('bob', groups=['system:masters']),              # Group subject
+    adm('carol', groups=['dev']),                       # no admin hit
+    adm('system:serviceaccount:ci:deployer'),           # SA subject
+    adm('robo', croles=['bot-role']),                   # croles, untrusted
+    adm('robo2', groups=['trusted-bots'],
+        croles=['bot-role']),                           # excluded by block
+    adm('dana', roles=['ns-admin']),                    # roles gate
+    adm('edith', groups=['dev'], croles=['bot-role'],
+        egr=['dev']),                                   # excluded groups
+    adm('frank', groups=['x' * 80]),                    # out-of-vocab key
+]
+
+
+def load_restricted_pack(action: str = '') -> List:
+    """The smoke pack, ``RESTRICTED_FOREACH_PACK`` and
+    ``ADMISSION_LANES_PACK``; ``action`` sets every policy's
+    ``validationFailureAction`` as in ``load_smoke_pack``."""
+    import yaml
+    from .api.policy import Policy
+    docs = [d for pack in (SMOKE_PACK, RESTRICTED_FOREACH_PACK,
+                           ADMISSION_LANES_PACK)
+            for d in yaml.safe_load_all(pack) if d]
+    if action:
+        for d in docs:
+            d['spec']['validationFailureAction'] = action
+    return [Policy(d) for d in docs]
+
+
 def load_mutate_pack() -> List:
     """The three mutate-pack policies."""
     from .api.policy import load_policies_from_yaml
@@ -418,6 +583,54 @@ def make_config4_pod(rng, i: int) -> dict:
     if rng.random() < 0.1:
         pod['spec']['containers'][0]['image'] = \
             'gcr.io/proj/svc@sha256:' + '0' * 64
+    return pod
+
+
+#: test_foreach_compile.py's capability pool
+_RESTRICTED_CAPS = ['ALL', 'NET_ADMIN', 'KILL', 'NET_BIND_SERVICE', 'CHOWN']
+#: the Pods that carry more containers than the encoder's widest gather
+#: (``compiler/ir.py MAX_GATHER`` = 32), so that their foreach lists
+#: overflow and those cells go to the host engine: three, all in a
+#: 16,384-row scan's first chunk (such a Pod widens every lane of its
+#: chunk, to element width 16 and list width 32)
+OVERFLOW_PODS = (1999, 3999, 5999)
+
+
+def _restricted_caps(rng, cont: dict) -> dict:
+    """test_foreach_compile.make_pod's capability mix on one container:
+    drop ``ALL`` / ``[]`` / ``KILL`` / ``all`` / null, add 0-2 of
+    ``_RESTRICTED_CAPS``."""
+    if rng.random() < 0.7:
+        caps = {}
+        if rng.random() < 0.8:
+            caps['drop'] = rng.choice(
+                [['ALL'], [], ['KILL'], ['ALL', 'KILL'], ['all'], None])
+        if rng.random() < 0.6:
+            caps['add'] = rng.sample(_RESTRICTED_CAPS, rng.randint(0, 2))
+        cont.setdefault('securityContext', {})['capabilities'] = caps
+    elif rng.random() < 0.3:
+        cont['securityContext'] = {}
+    return cont
+
+
+def make_restricted_pod(rng, i: int) -> dict:
+    """``make_config4_pod`` with the restricted chart's capability mix:
+    every container's capabilities redrawn, ``initContainers`` on about
+    30 % and ``ephemeralContainers`` on about 20 % of the Pods, and the
+    Pods ``OVERFLOW_PODS`` with 40 more containers."""
+    pod = make_config4_pod(rng, i)
+    spec = pod['spec']
+    for cont in spec['containers']:
+        _restricted_caps(rng, cont)
+    if rng.random() < 0.3:
+        spec['initContainers'] = [_restricted_caps(
+            rng, {'name': 'init', 'image': _IMAGES[i % len(_IMAGES)]})]
+    if rng.random() < 0.2:
+        spec['ephemeralContainers'] = [_restricted_caps(
+            rng, {'name': 'debug', 'image': 'busybox:1.36'})]
+    if i in OVERFLOW_PODS:
+        spec['containers'] += [{'name': f'x{k}', 'image': 'nginx:1.25.3'}
+                               for k in range(40)]
     return pod
 
 

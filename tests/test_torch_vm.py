@@ -48,16 +48,17 @@ def host_vm(tmp_path_factory):
     p = ctypes.c_void_p
     fn = lib.k1_vm_host
     fn.argtypes = [ctypes.POINTER(p), ctypes.POINTER(ctypes.c_longlong),
-                   ctypes.c_longlong] + [p] * 6 + [ctypes.c_int, p, p, p,
-                                                   ctypes.c_int, ctypes.c_int]
+                   ctypes.c_longlong] + [p] * 6 + [ctypes.c_int, p, p, p, p,
+                                                   ctypes.c_int, ctypes.c_int,
+                                                   ctypes.c_int]
     fn.restype = ctypes.c_int
     return fn
 
 
 def run_host(fn, program, packed):
     """The host build of K1v over ``packed`` (numpy or CPU tensors):
-    (s_u, d_u, fdet_u) as CPU tensors, the columns of eager-routed trees
-    zero (as the kernel's wrapper leaves them)."""
+    (s_u, d_u, fdet_u, adm) as CPU tensors, the columns of eager-routed
+    trees zero (as the kernel's wrapper leaves them)."""
     bufs = {k: np.ascontiguousarray(v.numpy() if torch.is_tensor(v) else v)
             for k, v in packed.items()}
     rows = next(iter(bufs.values())).shape[0]
@@ -69,14 +70,17 @@ def run_host(fn, program, packed):
     s = np.zeros((rows, program.n_uniq), np.int8)
     d = np.zeros((rows, program.n_uniq), np.int8)
     fd = np.zeros((rows, program.n_cols_u), np.int32)
+    adm = np.full((rows, program.n_adm), -1, np.int8)
     tabs = [np.ascontiguousarray(getattr(program, n))
             for n in ('code', 'lanes', 'i64', 'f64', 'bytes', 'trees')]
     rc = fn((ctypes.c_void_p * 5)(*ptrs), (ctypes.c_longlong * 5)(*widths),
             rows, *[t.ctypes.data for t in tabs], program.trees.shape[0],
-            s.ctypes.data, d.ctypes.data, fd.ctypes.data, program.n_uniq,
-            program.n_cols_u)
+            s.ctypes.data, d.ctypes.data, fd.ctypes.data,
+            adm.ctypes.data if program.n_adm else None, program.n_uniq,
+            program.n_cols_u, program.n_adm)
     assert rc == 0
-    return torch.from_numpy(s), torch.from_numpy(d), torch.from_numpy(fd)
+    return (torch.from_numpy(s), torch.from_numpy(d), torch.from_numpy(fd),
+            torch.from_numpy(adm))
 
 
 def _with_host_vm(monkeypatch, fn):
@@ -111,26 +115,33 @@ def test_host_vm_byte_equal_to_jax_and_eager(name, n, jax_reference,
     assert v32.tobytes() == j32.tobytes() == e32.tobytes()
 
 
-def test_routes_of_the_packs():
-    """Every program of the five packs without ``foreach`` is on K1v; in
-    the ``foreach`` pack exactly the trees holding a ``foreach`` node
-    stay on the eager walk."""
-    for name in NON_FOREACH:
+@pytest.mark.parametrize('name', sorted(PACKS) + ['admission_lanes'])
+def test_routes_of_the_packs(name):
+    """Every program of every pack, ``foreach`` trees included, is on
+    K1v: a route comes only from a named kernel limit, and no tree of
+    these packs is past one."""
+    if name == 'admission_lanes':
+        import yaml
+        from kyverno_tpu_torch import smokepack
+        from kyverno_tpu_torch.api.policy import Policy
+        from kyverno_tpu_torch.compiler.compile import compile_policies
+        from kyverno_tpu_torch.ops.eval import build_evaluator
+        tc = compile_policies([Policy(d) for d in yaml.safe_load_all(
+            smokepack.ADMISSION_LANES_PACK) if d])
+        tev = build_evaluator(tc, 'cpu')
+        assert tev.n_adm > 0
+    else:
         _jc, _jev, tc, tev = _evaluators(name)
-        assert tev.routes and set(tev.routes) == set(range(len(tc.programs)))
-        assert {r[0] for r in tev.routes.values()} == {'vm'}, name
-    _jc, _jev, tc, tev = _evaluators('foreach')
-    for j, prog in enumerate(tc.programs):
-        want = 'eager' if vm._has_foreach(prog.status) else 'vm'
-        assert tev.routes[j][0] == want
-        if want == 'eager':
-            assert tev.routes[j][1] == 'foreach'
+    assert tev.routes and set(tev.routes) == set(range(len(tc.programs)))
+    assert set(tev.routes.values()) == {('vm', 'lowered')}, name
 
 
 def test_mixed_routes_merge_equal_to_jax(jax_reference, host_vm,
                                          monkeypatch):
-    """A policy set with ``foreach`` and plain rules: K1v's columns and
-    the eager walk's merge in unique order, equal to JAX's output."""
+    """A policy set with ``foreach`` and plain rules, with K1v's locals
+    limit cut below what the ``foreach`` trees need: those trees go to
+    the eager walk under the named limit, and K1v's columns and the
+    eager walk's merge in unique order, equal to JAX's output."""
     from kyverno_tpu.compiler.compile import compile_policies as jcomp
     from kyverno_tpu.ops.eval import build_evaluator as jbuild
     from kyverno_tpu_torch.compiler.compile import compile_policies as tcomp
@@ -142,9 +153,16 @@ def test_mixed_routes_merge_equal_to_jax(jax_reference, host_vm,
     jp1, tp1 = load_pack('foreach')
     jp2, tp2 = load_pack('compiler')
     jc, tc = jcomp(jp2 + jp1), tcomp(tp2 + tp1)
+    monkeypatch.setattr(vm, 'LOCALS', 3)
     jev, tev = jbuild(jc), tbuild(tc, 'cpu')
     kinds = {r[0] for r in tev.routes.values()}
     assert kinds == {'vm', 'eager'}
+    for j, prog in enumerate(tc.programs):
+        route, reason = tev.routes[j]
+        if prog.policy_index >= len(tp2):
+            assert route == 'eager' and reason.startswith('locals ')
+        else:
+            assert route == 'vm'
     docs = make_resources('foreach', 40) + make_resources('compiler', 40)
     random.Random(3).shuffle(docs)
     match = np.ones((CAP, tev.n_uniq), np.uint8)
@@ -478,15 +496,16 @@ def test_host_vm_equals_eager_on_fuzzed_lanes(name, seed, host_vm):
 def _lane_column(packed, lane_row, r, idx, j=0):
     """Python mirror of ``k1vm_addr`` + load for one lane-table row
     (``j``: the byte within a byte lane's element)."""
-    b, off, stride, c0, c1, c2, c3, _ = lane_row
-    e = c0 * idx[0] + c1 * idx[1] + c2 * idx[2] + c3
+    b, off, stride, c0, c1, c2, const, c3 = lane_row
+    e = c0 * idx[0] + c1 * idx[1] + c2 * idx[2] + c3 * idx[3] + const
     return packed[vm.BUFFERS[b][0]][r, off + e * stride + j]
 
 
-@pytest.mark.parametrize('name', NON_FOREACH)
+@pytest.mark.parametrize('name', sorted(PACKS))
 def test_lane_offsets_equal_unpack_batch_slices(name):
     """Every lane a View resolves reads, at every index, the element
-    ``unpack_batch`` gives for that lane."""
+    ``unpack_batch`` gives for that lane; a per-foreach-element gather's
+    lanes at levels (3, 2), its metadata at level 3."""
     from kyverno_tpu_torch.compiler.encode import encode_batch
     from kyverno_tpu_torch.ops.eval import pack_batch, unpack_batch
     _jc, _jev, tc, tev = _evaluators(name)
@@ -499,22 +518,25 @@ def test_lane_offsets_equal_unpack_batch_slices(name):
     checked = 0
     for lname in sorted(layout):
         prefix, _, suffix = lname.partition('_')
-        if lname.startswith('__') or prefix[0] == 'e':
+        if lname.startswith('__'):
             continue
         arr = lanes[lname]
         byte = suffix in ('str_head', 'str_tail')
         dims = arr.shape[1:-1] if byte else arr.shape[1:]
-        if prefix[0] == 'g' and dims:
+        gathered = (prefix[0] == 'g' and len(dims) == 1) or \
+            (prefix[0] == 'e' and len(dims) == 2)
+        if gathered:
             view = lw.gather_view(prefix)
-            levels = (2,)
+        elif prefix[0] == 'e':
+            view = lw.row_view(prefix)
         else:
             view = vm.View(lw, prefix, tuple(range(len(dims))))
-            levels = tuple(range(len(dims)))
+        levels = view.levels
         row = lw.lane_rows[view.ref(suffix)]
         for _ in range(4):
             r = int(rng.integers(0, 8))
             at = [int(rng.integers(0, n)) for n in dims]
-            idx = [0, 0, 0]
+            idx = [0, 0, 0, 0]
             for lvl, i in zip(levels, at):
                 idx[lvl] = i
             want = arr[(r, *at)]
@@ -525,14 +547,22 @@ def test_lane_offsets_equal_unpack_batch_slices(name):
             else:
                 assert want == _lane_column(packed, row, r, idx), lname
             checked += 1
-        if prefix[0] == 'g' and dims:
-            k = int(rng.integers(0, dims[0]))
+        if gathered:
+            k = int(rng.integers(0, dims[-1]))
             row = lw.lane_rows[view.at(k).ref(suffix)]
             r = int(rng.integers(0, 8))
-            want = arr[r, k]
-            got = _lane_column(packed, row, r, [0, 0, 0])
-            assert (want[0] if byte else want) == got, lname
+            outer = [int(rng.integers(0, n)) for n in dims[:-1]]
+            idx = [0, 0, 0, 0]
+            for lvl, i in zip(levels, outer):
+                idx[lvl] = i
+            want = arr[(r, *outer, k)]
+            got = [_lane_column(packed, row, r, idx, j)
+                   for j in range(arr.shape[-1])] if byte \
+                else _lane_column(packed, row, r, idx)
+            assert (list(want) if byte else want) == got, lname
     assert checked > 0
+    if name == 'foreach':
+        assert any(n.startswith('e') for n in layout)
 
 
 def test_pools_round_trip():
@@ -637,9 +667,9 @@ def test_pattern_past_the_limit_routes_eager():
 
 
 def test_tree_the_vm_cannot_lower_fails_the_build():
-    """Outside ``foreach`` and the named limits every tree goes to K1v:
-    a tree the lowering cannot take raises at build time and is never
-    routed to the eager walk."""
+    """Short of the named limits every tree goes to K1v: a tree the
+    lowering cannot take raises at build time and is never routed to
+    the eager walk."""
     import copy
     import dataclasses
     from kyverno_tpu_torch.compiler.ir import BoolExpr, Leaf, StatusExpr
