@@ -22,7 +22,12 @@ CUDA card and checks it, in phases that each print one line:
    walk's, and each program's route.  ``kernels``: K1v, K1h and K1c
    against their plain versions on the card at the main path's shapes —
    the chunk's real tensors plus seeded random ones.  Outputs must be
-   exactly equal.  Times come from CUDA events.
+   exactly equal.  Times come from CUDA events.  K1v's record adds its
+   launch plan (parts per tree, groups, blocks, warps per block, shared
+   memory per block, groups staged in shared memory or reading device
+   memory), ptxas' numbers, the instructions it executed per row (its
+   loops stop at the count) beside ``row_insns``, the full-width count
+   its bound uses, and its time with every block in the global mode.
 3. ``slice``: ``scan_report_results`` over ``--pods`` Pods (default
    100,000, a large production cluster) with the smoke pack's 12
    policies: Pods/s, decisions/s, the stage breakdown, the
@@ -74,7 +79,10 @@ CUDA card and checks it, in phases that each print one line:
    walk (bit-equal out8/out32; ``k1_admission`` reports the aten ops and
    dispatch per call), and each kernel is held against its plain version
    on the exact card tensors that review gave it (K1v, K1h and K1c at the
-   64-row admission capacity, K3 at the /mutate lanes).  Because the
+   64-row admission capacity, K3 at the /mutate lanes); one more sync
+   /validate/fail review runs under torch.profiler, whose kernel events
+   ``k1_admission`` prints beside the launches the wrappers counted
+   (``profiler_k1v``).  Because the
    handler serves a failed device path from the host engine with the
    same bytes, the phase also counts the serving path of each validate
    decision (decision provenance), the rows the mutate scanner
@@ -161,6 +169,8 @@ READY_S = 300.0                # bound on the wait for the scanners
 #: a kernel record's numbers that belong to the shapes it was run at
 AT_SHAPE = ('ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
             'kernel_device_ms', 'shape')
+#: and K1v's own: its time in the global mode and its launch plan
+K1V_AT_SHAPE = AT_SHAPE + ('global_mode_ms', 'plan')
 
 
 def _die(msg: str) -> None:
@@ -446,40 +456,62 @@ def _k1v_bound(program, rows: int):
         'bytes' if t_bytes >= t_ops else 'operations'
 
 
+def k1v_plan(program, rows: int) -> dict:
+    """K1v's launch over ``rows`` rows: entries, parts per tree (by
+    unique column), groups and blocks, warps per block, each block's
+    dynamic shared memory and the groups in each mode (tables staged in
+    shared memory, or read from device memory)."""
+    return {'entries': program.n_entries,
+            'parts': {str(c): n for c, n in sorted(program.tree_parts.items())},
+            'groups': program.n_groups, 'blocks': program.blocks(rows),
+            'warps_per_block': program.group_warps,
+            'smem_bytes': program.smem_bytes,
+            'staged_groups': program.n_staged,
+            'global_groups': program.n_groups - program.n_staged}
+
+
 def measure_k1v(calls, device) -> dict:
     """K1v on its first captured call (packed buffers, program): the
-    wrapper, its device time and its plain version, against the bound."""
-    from kyverno_tpu_torch.ops import kernels
+    wrapper, its device time and its plain version, against the bound;
+    its launch plan, the instructions it executed (its loops stop at the
+    count; the bound's op term counts every loop at full width), the
+    time of the same launch with every block in the global mode, and
+    ptxas' numbers."""
+    from kyverno_tpu_torch.ops import _build, kernels
     if not calls:
         raise AssertionError('K1v was never called')
     packed, program = calls[0]
     rows = next(iter(packed.values())).shape[0]
+    flat = program.restaged(0)
     err = max(_max_abs_err(kernels.status_vm(*c), c[1].plain(c[0]))
               for c in calls)
+    err = max(err, _max_abs_err(kernels.status_vm(packed, flat),
+                                program.plain(packed)))
     bound_ms, bound_by = _k1v_bound(program, rows)
+    executed = kernels.status_vm_executed(packed, program) \
+        if device.type == 'cuda' else None
     return {
         'max_abs_err': err,
         'ms': _ms(lambda: kernels.status_vm(packed, program), device),
+        'global_mode_ms': _ms(lambda: kernels.status_vm(packed, flat),
+                              device),
         'plain_ms': _ms(lambda: program.plain(packed), device, reps=3),
         'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None,
         'kernel_device_ms': _device_busy_ms(
             lambda: kernels.status_vm(packed, program), device,
             'k1_vm_kernel', reps=20),
-        'shape': {'rows': rows, 'entries': int(program.trees.shape[0]),
+        'plan': k1v_plan(program, rows),
+        'ptxas': ptxas_summary(_build.build_log('k1_vm')),
+        'shape': {'rows': rows, 'entries': program.n_entries,
                   'adm_cols': program.n_adm,
                   'instructions': int(program.code.shape[0]),
                   'lanes': int(program.lanes.shape[0]),
                   'row_bytes': program.row_bytes,
                   'row_insns': program.row_insns,
+                  'executed_row_insns': None if executed is None
+                  else executed / rows,
                   'depths': program.depths},
         'calls': len(calls)}
-
-
-#: the CUDA symbol of each hand-written kernel, by its launch counter
-KERNEL_SYMBOLS = {'k1_vm': 'k1_vm_kernel', 'k1c_wildcard': 'wildcard_kernel',
-                  'k1h_fdet_select': 'fdet_select_kernel',
-                  'k3_mutate': 'mutate_kernel',
-                  'k4_status_hist': 'status_hist_kernel'}
 
 
 def _device_busy_ms(fn, device, kernel: str = '', reps: int = 1):
@@ -510,7 +542,7 @@ def _device_busy_ms(fn, device, kernel: str = '', reps: int = 1):
         print(f'chip_smoke: profiler unavailable: {e}', file=sys.stderr)
         return None
     total_us, launches = 0.0, 0
-    seen = dict.fromkeys(KERNEL_SYMBOLS.values(), 0)
+    seen = dict.fromkeys(kernels.KERNEL_SYMBOLS.values(), 0)
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA or \
                 getattr(evt, 'is_user_annotation', False):
@@ -523,7 +555,7 @@ def _device_busy_ms(fn, device, kernel: str = '', reps: int = 1):
             launches += evt.count
     missed = {name: (kernels.LAUNCHES[name] - before.get(name, 0),
                      seen[symbol])
-              for name, symbol in KERNEL_SYMBOLS.items()
+              for name, symbol in kernels.KERNEL_SYMBOLS.items()
               if kernels.LAUNCHES[name] - before.get(name, 0) !=
               seen[symbol]}
     if missed and not kernel:
@@ -533,6 +565,27 @@ def _device_busy_ms(fn, device, kernel: str = '', reps: int = 1):
     if total_us <= 0:
         return None
     return total_us / 1e3 / (launches if kernel else reps)
+
+
+def profiler_launches(fn, device) -> dict:
+    """One call of ``fn`` (a sync request) under torch.profiler: the
+    launches of each hand-written kernel its wrapper counted, beside the
+    kernel events the profiler recorded under the kernel's symbol
+    (``observability/profiling.py kernel_event_counts``, which
+    ``deep_profile`` reports when they differ)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from kyverno_tpu_torch.observability.profiling import \
+        kernel_event_counts
+    from kyverno_tpu_torch.ops import kernels
+    torch.cuda.synchronize()
+    before = dict(kernels.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return kernel_event_counts(prof.key_averages(), before,
+                               dict(kernels.LAUNCHES))
 
 
 def request_kernel_ms(fn, reps: int = 5,
@@ -1612,7 +1665,10 @@ def admission_kernels(server, oracle, reviews, vev, device) -> dict:
         vev(packed, layout)
         eager_ms = (time.perf_counter() - t0) * 1e3
         eager_aten = aten_ops(lambda: vev(packed, layout), device)
+    body = next(b for r, b in reviews if r == '/validate/fail')
     out['k1_call'] = {
+        'profiler_k1v': profiler_launches(
+            lambda: server.handle('/validate/fail', body), device),
         'rows': next(iter(packed.values())).shape[0],
         'k1v_check': {'max_abs_err': err, 'capture_launches': launched},
         'host_dispatch_ms': host_ms,
@@ -1881,8 +1937,10 @@ def measure_foreach_trees(pods, device, chunk: int) -> dict:
         program = ev.plan_for(layout).program
         bound_ms, bound_by = _k1v_bound(program, n)
         out[label] = {
-            'rows': n, 'entries': int(program.trees.shape[0]),
+            'rows': n, 'plan': k1v_plan(program, n),
             'row_insns': program.row_insns,
+            'executed_row_insns': kernels.status_vm_executed(
+                packed, program) / n,
             'max_abs_err': _max_abs_err(kernels.status_vm(packed, program),
                                         program.plain(packed)),
             'ms': _ms(lambda: kernels.status_vm(packed, program), device),
@@ -1930,8 +1988,8 @@ def restricted_phase(scanner, policies, pods, device, seed) -> dict:
                                'device_span_ms', 'k1v_check', 'aten_ops',
                                'eager_walk', 'routes')},
         k1v={k: k1v[k] for k in ('max_abs_err', 'ms', 'kernel_device_ms',
-                                 'plain_ms', 'bound_ms', 'bound_by',
-                                 'shape')},
+                                 'global_mode_ms', 'plain_ms', 'bound_ms',
+                                 'bound_by', 'plan', 'shape')},
         adm_cols=program.n_adm, k1i_plain=k1i, foreach_trees=trees)),
         flush=True)
     sl, _digests = slice_phase(scanner, policies, pods)
@@ -2046,7 +2104,8 @@ def main(argv=None) -> int:
         print('kernels ' + json.dumps(
             {r['name']: dict({k: r.get(k) for k in (
                 'max_abs_err', 'ms', 'kernel_device_ms', 'plain_ms',
-                'library_ms', 'cases')},
+                'library_ms', 'cases', 'global_mode_ms', 'plan', 'ptxas')
+                if k in r},
                 bound_us=r['bound_ms'] * 1e3) for r in records}),
               flush=True)
         print('k1_chunk ' + json.dumps({k: chunk_stats[k] for k in (
@@ -2118,8 +2177,9 @@ def main(argv=None) -> int:
         # shapes that path gave it; the chunk-shape numbers stay beside
         r['launches'] = adm['launches'].get(r['name'], 0)
         at = adm['kernels_at_admission'][r['name']]
-        r['at_chunk'] = {k: r[k] for k in AT_SHAPE}
-        r.update({k: at[k] for k in AT_SHAPE})
+        keys = K1V_AT_SHAPE if r['name'] == 'k1_vm' else AT_SHAPE
+        r['at_chunk'] = {k: r[k] for k in keys}
+        r.update({k: at[k] for k in keys})
         r['max_abs_err'] = max(r['max_abs_err'], at['max_abs_err'])
     # K4h runs on the mesh path, and is held at the step's shapes
     k4 = dict(mesh['k4'], launches=mesh['launches']['k4_status_hist'])

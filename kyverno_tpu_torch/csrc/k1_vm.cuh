@@ -1,4 +1,4 @@
-// K1v: the status-program interpreter, per (row, unique tree).
+// K1v: the status-program interpreter, per (row, part of a unique tree).
 //
 // Replaces kyverno_tpu/ops/eval.py build_evaluator's program walk
 // (eval_leaf :1290, eval_expr :1336, eval_status :1406, evaluate_unique
@@ -38,8 +38,32 @@
 // int64 pool) and boolean bytecode; its AEND writes an int8 column of
 // adm_out.
 //
-// Control flow depends on the program only (loop widths are static), so
-// the threads of a block, which share one tree, never diverge on it.
+// Parts.  A status tree whose root is a `seq` may be lowered as parts:
+// runs of consecutive children, each ending in PEND, which leaves the
+// part's (s, d, fd) triple in a slot instead of the outputs.  k1vm_fold
+// folds a tree's slots in child order exactly as SSEQ folds its
+// children (the first non-PASS triple, else the last), and k1vm_write
+// stores the result.  Every status entry ends in PEND, so a tree of one
+// part is a fold of one slot; an admission entry's AEND writes its
+// column itself.
+//
+// Loops that stop at the count.  A LOOP or SLOOP whose word 5 names a
+// count lane (ops/vm.py proves that every element at or past the row's
+// count adds the reduction's identity) runs min(max(count, 0), width)
+// elements, and a status loop at least element 0, whose fail detail
+// SENDLOOP keeps whatever the element's validity.  On the card the
+// warp runs the largest such count among its rows, so its threads stay
+// together; the extra elements add the identity.  An unmarked loop
+// runs its full width.
+//
+// Tables.  The interpreter reads its instructions, lane-table rows and
+// constant pools through K1vmTables: the device tables, or the copy of
+// one block's share that k1_vm.cu staged in shared memory, whose
+// instruction and lane indices start at code_lo and lane_lo.
+//
+// Control flow depends on the program and the loop counts only, so the
+// threads of a warp, which run one part over 32 rows, diverge only
+// inside an instruction.
 //
 // K1VM_HD marks every function host and device code under nvcc and
 // plain inline code under a host compiler: k1_vm_host.cpp runs the same
@@ -86,21 +110,16 @@ enum K1vmOp {
   K1_STORE, K1_LOAD, K1_LOOP, K1_ENDLOOP, K1_SCONST, K1_SFROMK,
   K1_SVARERR, K1_SFAILGUARD, K1_STRACKFAIL, K1_SSEQ, K1_SANY, K1_SEQUALITY,
   K1_SCOND, K1_SLOOP, K1_SENDLOOP, K1_SFORALL, K1_SEXISTS, K1_SSCALARS,
-  K1_END, K1_SUSP, K1_IDXLAST, K1_PACK2, K1_IDIN, K1_SFEBEGIN, K1_SFEENTRY,
+  K1_PEND, K1_SUSP, K1_IDXLAST, K1_PACK2, K1_IDIN, K1_SFEBEGIN, K1_SFEENTRY,
   K1_SFEEND, K1_AEND
 };
 
 // one evaluator call: the five packed buffers (uint8, int8, bool, int32,
 // int64; a missing one is null), their row widths in elements, the
-// program's tables, the unique-space outputs and the admission columns
+// unique-space outputs and the admission columns
 struct K1vmArgs {
   const unsigned char* buf[5];
   long long width[5];
-  const int32_t* code;
-  const int32_t* lanes;
-  const int64_t* i64;
-  const double* f64;
-  const unsigned char* bytes;
   int8_t* s_out;
   int8_t* d_out;
   int32_t* fd_out;
@@ -108,6 +127,19 @@ struct K1vmArgs {
   int n_uniq;
   int n_cols_u;
   int n_adm;
+};
+
+// the program's tables as the interpreter reads them: instruction pc is
+// code[(pc - code_lo) * K1VM_INSN], lane l is lanes[(l - lane_lo) *
+// K1VM_LANE] (both los 0 for the device tables themselves)
+struct K1vmTables {
+  const int32_t* code;
+  const int32_t* lanes;
+  const int64_t* i64;
+  const double* f64;
+  const unsigned char* bytes;
+  int code_lo;
+  int lane_lo;
 };
 
 struct K1vmStatus {
@@ -270,77 +302,115 @@ K1VM_HD int k1vm_foreach_entry(int acc, int fl, bool active, bool ovf) {
   return acc | (nonpass ? 1 : 0) | (unknown ? 2 : 0) | (apply ? 4 : 0);
 }
 
-// Run the entry whose instructions start at `pc` for row r: a status
-// tree, whose END writes the status, detail and fail detail into unique
-// column `col`, or an admission match, whose AEND writes admission
-// column `col`.
-K1VM_HD void k1vm_run(const K1vmArgs& a, long long r, int pc) {
+// lane-table row l
+K1VM_HD const int32_t* k1vm_lane(const K1vmTables& t, int l) {
+  return t.lanes + static_cast<long long>(l - t.lane_lo) * K1VM_LANE;
+}
+
+// Elements a loop marked with a count lane runs: min(max(count, 0),
+// width), at least element 0 for a status loop (status) of a nonzero
+// width; on the card, the largest of that among the warp's rows.
+K1VM_HD int k1vm_loop_count(int64_t count, int width, bool status) {
+  int n = count <= 0 ? 0 : (count < width ? static_cast<int>(count) : width);
+  if (status && width > 0 && n == 0) n = 1;
+#ifdef __CUDA_ARCH__
+  n = __reduce_max_sync(__activemask(), n);
+#endif
+  return n;
+}
+
+// A split tree's result: its parts' triples (parts[i * stride], in
+// child order) folded as K1_SSEQ folds the children, the first non-PASS
+// triple, else the last one.
+K1VM_HD K1vmStatus k1vm_fold(const K1vmStatus* parts, int n, int stride) {
+  K1vmStatus out = parts[0];
+  for (int i = 1; i < n; ++i)
+    if (out.s == K1VM_PASS) out = parts[static_cast<long long>(i) * stride];
+  return out;
+}
+
+// a status tree's (status, detail, fail detail) into unique column col
+K1VM_HD void k1vm_write(const K1vmArgs& a, long long r, int col,
+                        K1vmStatus st) {
+  a.s_out[r * a.n_uniq + col] = st.s;
+  a.d_out[r * a.n_uniq + col] = st.d;
+  a.fd_out[r * a.n_cols_u + col] = st.fd;
+}
+
+// Run the part whose instructions start at `pc` for row r: a status
+// part, whose PEND leaves its (status, detail, fail detail) in *slot, or
+// an admission match, whose AEND writes its admission column.  Returns
+// the instructions it executed.
+K1VM_HD long long k1vm_run(const K1vmArgs& a, const K1vmTables& t,
+                           long long r, int pc, K1vmStatus* slot) {
   uint8_t ks[K1VM_KSTACK];
   K1vmStatus ss[K1VM_SSTACK];
   uint8_t loc[K1VM_LOCALS];
   K1vmFrame fr[K1VM_FRAMES];
   int idx[K1VM_LEVELS] = {0, 0, 0, 0};
   int kp = 0, sp = 0, fp = 0;
+  long long executed = 0;
   for (;;) {
-    const int32_t* in = a.code + static_cast<long long>(pc) * K1VM_INSN;
+    const int32_t* in = t.code + static_cast<long long>(pc - t.code_lo) * K1VM_INSN;
     ++pc;
-    const int32_t* ln = a.lanes + static_cast<long long>(in[1]) * K1VM_LANE;
+    ++executed;
     switch (in[0]) {
       case K1_K:
         ks[kp++] = static_cast<uint8_t>(in[1]);
         break;
       case K1_TAG: {
-        const int64_t tg = k1vm_load(a, r, ln, idx);
+        const int64_t tg = k1vm_load(a, r, k1vm_lane(t, in[1]), idx);
         ks[kp++] = k1vm_known(tg >= 0 && tg < 32 && ((in[2] >> tg) & 1));
         break;
       }
       case K1_LB:
-        ks[kp++] = k1vm_known(k1vm_load(a, r, ln, idx) != 0);
+        ks[kp++] = k1vm_known(k1vm_load(a, r, k1vm_lane(t, in[1]), idx) != 0);
         break;
       case K1_CI:
         ks[kp++] = k1vm_known(
-            k1vm_cmp_i(k1vm_load(a, r, ln, idx), a.i64[in[3]], in[2]));
+            k1vm_cmp_i(k1vm_load(a, r, k1vm_lane(t, in[1]), idx), t.i64[in[3]], in[2]));
         break;
       case K1_ABSLE: {
-        const int64_t x = k1vm_load(a, r, ln, idx);
+        const int64_t x = k1vm_load(a, r, k1vm_lane(t, in[1]), idx);
         // torch.abs wraps INT64_MIN to itself
         const int64_t ax = x < 0 ? static_cast<int64_t>(0ull - static_cast<uint64_t>(x)) : x;
-        ks[kp++] = k1vm_known(ax <= a.i64[in[3]]);
+        ks[kp++] = k1vm_known(ax <= t.i64[in[3]]);
         break;
       }
       case K1_F64: {
-        const double x = k1vm_div(static_cast<double>(k1vm_load(a, r, ln, idx)),
-                                  a.f64[in[4]]);
-        ks[kp++] = k1vm_known(k1vm_cmp_f(x, a.f64[in[3]], in[2]));
+        const double x = k1vm_div(static_cast<double>(k1vm_load(a, r, k1vm_lane(t, in[1]), idx)),
+                                  t.f64[in[4]]);
+        ks[kp++] = k1vm_known(k1vm_cmp_f(x, t.f64[in[3]], in[2]));
         break;
       }
       case K1_F64DUR: {
-        const double key = k1vm_div(static_cast<double>(k1vm_load(a, r, ln, idx)),
+        const double key = k1vm_div(static_cast<double>(k1vm_load(a, r, k1vm_lane(t, in[1]), idx)),
                                     1000.0);
         const double kd = trunc(k1vm_mul(key, 1e9));
         ks[kp++] = k1vm_known(k1vm_cmp_f(in[4] ? kd : k1vm_div(kd, 1e9),
-                                         a.f64[in[3]], in[2]));
+                                         t.f64[in[3]], in[2]));
         break;
       }
       case K1_BYTES: {
-        const unsigned char* p = k1vm_addr(a, r, ln, idx);
-        const unsigned char* c = a.bytes + in[3];
+        const unsigned char* p = k1vm_addr(a, r, k1vm_lane(t, in[1]), idx);
+        const unsigned char* c = t.bytes + in[3];
         bool eq = true;
         for (int j = 0; j < in[4]; ++j) eq &= p[j] == c[j];
         ks[kp++] = k1vm_known(eq);
         break;
       }
       case K1_GLOB: {
-        const int32_t* len_ln = a.lanes + static_cast<long long>(in[2]) * K1VM_LANE;
-        const int32_t* tag_ln = a.lanes + static_cast<long long>(in[3]) * K1VM_LANE;
+        const int32_t* ln = k1vm_lane(t, in[1]);
+        const int32_t* len_ln = k1vm_lane(t, in[2]);
+        const int32_t* tag_ln = k1vm_lane(t, in[3]);
         ks[kp++] = k1vm_glob(k1vm_addr(a, r, ln, idx), ln[2],
                              k1vm_load(a, r, len_ln, idx),
                              static_cast<int>(k1vm_load(a, r, tag_ln, idx)),
-                             a.bytes + in[4], in[5]);
+                             t.bytes + in[4], in[5]);
         break;
       }
       case K1_IDXLT:
-        ks[kp++] = k1vm_known(idx[in[2]] < k1vm_load(a, r, ln, idx));
+        ks[kp++] = k1vm_known(idx[in[2]] < k1vm_load(a, r, k1vm_lane(t, in[1]), idx));
         break;
       case K1_AND:
         --kp;
@@ -405,7 +475,11 @@ K1VM_HD void k1vm_run(const K1vmArgs& a, long long r, int pc) {
         break;
       case K1_LOOP:
       case K1_SLOOP: {
-        const int level = in[1], width = in[2];
+        const int level = in[1];
+        const int width = in[5] >= 0
+            ? k1vm_loop_count(k1vm_load(a, r, k1vm_lane(t, in[5]), idx), in[2],
+                              in[0] == K1_SLOOP)
+            : in[2];
         K1vmFrame& f = fr[fp];
         f.start = pc;
         f.level = level;
@@ -494,7 +568,7 @@ K1VM_HD void k1vm_run(const K1vmArgs& a, long long r, int pc) {
       }
       case K1_SVARERR: {
         K1vmStatus& st = ss[sp - 1];
-        if (k1vm_load(a, r, ln, idx) != 0 && st.s != K1VM_VAR_ERR) {
+        if (k1vm_load(a, r, k1vm_lane(t, in[1]), idx) != 0 && st.s != K1VM_VAR_ERR) {
           st.s = K1VM_VAR_ERR;
           st.d = static_cast<int8_t>(in[2]);
         }
@@ -551,8 +625,8 @@ K1VM_HD void k1vm_run(const K1vmArgs& a, long long r, int pc) {
       case K1_SFORALL:
       case K1_SEXISTS: {
         const K1vmStatus rec = ss[sp - 1];
-        const int32_t* ovf_ln = a.lanes + static_cast<long long>(in[2]) * K1VM_LANE;
-        const int64_t tag = k1vm_load(a, r, ln, idx);
+        const int32_t* ovf_ln = k1vm_lane(t, in[2]);
+        const int64_t tag = k1vm_load(a, r, k1vm_lane(t, in[1]), idx);
         const bool ovf = k1vm_load(a, r, ovf_ln, idx) != 0;
         const int fl = rec.s;
         int s;
@@ -574,8 +648,8 @@ K1VM_HD void k1vm_run(const K1vmArgs& a, long long r, int pc) {
       }
       case K1_SSCALARS: {
         const uint8_t k = ks[--kp];  // (any valid FAIL, any valid unknown)
-        const int32_t* ovf_ln = a.lanes + static_cast<long long>(in[2]) * K1VM_LANE;
-        const int64_t tag = k1vm_load(a, r, ln, idx);
+        const int32_t* ovf_ln = k1vm_lane(t, in[2]);
+        const int64_t tag = k1vm_load(a, r, k1vm_lane(t, in[1]), idx);
         const bool ovf = k1vm_load(a, r, ovf_ln, idx) != 0;
         const int s = tag != K1VM_TAG_ARRAY ? K1VM_FAIL
             : (k & 1) ? K1VM_FAIL
@@ -584,13 +658,14 @@ K1VM_HD void k1vm_run(const K1vmArgs& a, long long r, int pc) {
         break;
       }
       case K1_SUSP: {
-        const int32_t* len_ln = a.lanes + static_cast<long long>(in[2]) * K1VM_LANE;
+        const int32_t* ln = k1vm_lane(t, in[1]);
+        const int32_t* len_ln = k1vm_lane(t, in[2]);
         ks[kp++] = k1vm_known(k1vm_susp(k1vm_addr(a, r, ln, idx), ln[2],
                                         k1vm_load(a, r, len_ln, idx)));
         break;
       }
       case K1_IDXLAST: {
-        const int64_t c = k1vm_load(a, r, ln, idx);
+        const int64_t c = k1vm_load(a, r, k1vm_lane(t, in[1]), idx);
         ks[kp++] = k1vm_known(idx[in[2]] == (c > 1 ? c - 1 : 0));
         break;
       }
@@ -599,12 +674,13 @@ K1VM_HD void k1vm_run(const K1vmArgs& a, long long r, int pc) {
         ks[kp - 1] = static_cast<uint8_t>((ks[kp - 1] & 3) | ((ks[kp] & 3) << 2));
         break;
       case K1_IDIN: {
+        const int32_t* ln = k1vm_lane(t, in[1]);
         const unsigned char* p = k1vm_addr(a, r, ln, idx);
         const int esz = k1vm_esize(ln[0]);
         bool hit = false;
         for (int j = 0; j < in[2]; ++j) {
           const int64_t x = k1vm_read(p + j * esz, ln[0]);
-          for (int k = 0; k < in[4]; ++k) hit |= x == a.i64[in[3] + k];
+          for (int k = 0; k < in[4]; ++k) hit |= x == t.i64[in[3] + k];
         }
         ks[kp++] = k1vm_known(hit);
         break;
@@ -630,14 +706,10 @@ K1VM_HD void k1vm_run(const K1vmArgs& a, long long r, int pc) {
       }
       case K1_AEND:
         a.adm_out[r * a.n_adm + in[1]] = static_cast<int8_t>(ks[kp - 1] & 1);
-        return;
-      default: {  // K1_END
-        const K1vmStatus st = ss[sp - 1];
-        a.s_out[r * a.n_uniq + in[1]] = st.s;
-        a.d_out[r * a.n_uniq + in[1]] = st.d;
-        a.fd_out[r * a.n_cols_u + in[1]] = st.fd;
-        return;
-      }
+        return executed;
+      default:  // K1_PEND
+        *slot = ss[sp - 1];
+        return executed;
     }
   }
 }

@@ -30,7 +30,7 @@ import time
 import traceback
 from collections import Counter, OrderedDict
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 from urllib.parse import parse_qs, urlparse
 
 #: auto-captures beyond this count evict the oldest artifact directory
@@ -128,11 +128,14 @@ def deep_profile(seconds: float = 2.0, trigger: str = 'manual',
         artifacts: List[str] = []
         torch_traced = False
         prof = None
+        gap: Dict[str, Any] = {}
         if _cuda_live():
             try:
                 from torch.profiler import ProfilerActivity, profile
+                from ..ops import kernels
                 prof = profile(activities=[ProfilerActivity.CPU,
                                            ProfilerActivity.CUDA])
+                before = dict(kernels.LAUNCHES)
                 prof.start()
                 torch_traced = True
             except Exception:  # noqa: BLE001 - py profile still lands
@@ -141,6 +144,10 @@ def deep_profile(seconds: float = 2.0, trigger: str = 'manual',
         if torch_traced:
             try:
                 prof.stop()
+                gap = {k: v for k, v in kernel_event_counts(
+                    prof.key_averages(), before,
+                    dict(kernels.LAUNCHES)).items()
+                    if v['launches'] > v['profiler_events']}
                 os.makedirs(os.path.join(path, 'torch'), exist_ok=True)
                 prof.export_chrome_trace(
                     os.path.join(path, 'torch', 'trace.json'))
@@ -151,8 +158,36 @@ def deep_profile(seconds: float = 2.0, trigger: str = 'manual',
             f.write(folded)
         artifacts.append('py.folded')
         _prune_profiles(root)
-    return {'dir': path, 'seconds': seconds, 'trigger': trigger,
-            'torch_trace': torch_traced, 'artifacts': artifacts}
+    out = {'dir': path, 'seconds': seconds, 'trigger': trigger,
+           'torch_trace': torch_traced, 'artifacts': artifacts}
+    if gap:
+        out['kernel_events'] = gap
+        out['note'] = ('device time may be under-counted: the profiler '
+                       'recorded fewer kernel events than the kernel '
+                       'wrappers counted launches')
+    return out
+
+
+def kernel_event_counts(events, before: Dict[str, int],
+                        after: Dict[str, int]) -> Dict[str, Any]:
+    """Per hand-written kernel that launched or was seen: the launches
+    its wrapper counted (``after - before``, ``ops/kernels.py
+    LAUNCHES``) and the device events ``events`` (a profiler's
+    ``key_averages()``) hold under the kernel's symbol,
+    ``{kernel: {'launches': n, 'profiler_events': m}}``."""
+    from torch.autograd import DeviceType
+    from ..ops.kernels import KERNEL_SYMBOLS
+    seen = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    for evt in events:
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        for name, symbol in KERNEL_SYMBOLS.items():
+            if symbol in evt.key:
+                seen[name] += evt.count
+    return {name: {'launches': after.get(name, 0) - before.get(name, 0),
+                   'profiler_events': seen[name]}
+            for name in KERNEL_SYMBOLS
+            if after.get(name, 0) - before.get(name, 0) or seen[name]}
 
 
 # -- debug route registry ----------------------------------------------------

@@ -7,9 +7,10 @@ built by ``ops/_build.py``):
 
 * K1v ``status_vm`` — every unique status tree of a policy set over a
   packed batch, and the per-row admission match (K1i) of its eligible
-  programs, as one launch of a bytecode interpreter (the bytecode from
-  ``ops/vm.py``); its plain version is the evaluator's eager walk and
-  ``_adm_match_graph``;
+  programs, as one launch of a bytecode interpreter (the bytecode and
+  its launch plan from ``ops/vm.py``: a block per row tile and group of
+  parts, a warp per part); its plain version is the evaluator's eager
+  walk and ``_adm_match_graph``;
 * K1h ``fdet_select`` — the compact fail-detail select of
   ``evaluate_packed``: the first k relevant columns of each row and
   their fail details;
@@ -51,9 +52,25 @@ WILDCARD_MAX_PATTERN = 256
 _CONV_TAGS = (TAG_STRING, TAG_INT, TAG_FLOAT, TAG_BOOL)
 
 
+#: the CUDA symbol of each hand-written kernel, by its launch counter
+#: (what a profiler trace names its launches)
+KERNEL_SYMBOLS: Dict[str, str] = {
+    'k1_vm': 'k1_vm_kernel', 'k1c_wildcard': 'wildcard_kernel',
+    'k1h_fdet_select': 'fdet_select_kernel', 'k3_mutate': 'mutate_kernel',
+    'k4_status_hist': 'status_hist_kernel'}
+
+#: K1v's groups launched since the last ``reset_launches``, by how
+#: their blocks read the program's tables: copied into shared memory
+#: (``staged``), or from device memory where they exceed
+#: ``ops/vm.py STAGE_BYTES`` (``global``)
+K1V_GROUPS: Dict[str, int] = {'staged': 0, 'global': 0}
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for mode in K1V_GROUPS:
+        K1V_GROUPS[mode] = 0
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -89,6 +106,25 @@ def status_vm(packed: Dict[str, torch.Tensor], program
     written, those of trees routed to the eager walk are zero; ``adm``
     holds the admission match of the policy set's eligible programs
     (no column when the layout has no admission lanes)."""
+    return _status_vm(packed, program, None)
+
+
+def status_vm_executed(packed: Dict[str, torch.Tensor], program) -> int:
+    """Instructions K1v interprets over ``packed`` (CUDA tensors): one
+    launch of ``status_vm``'s kernel that also counts them.  Loops that
+    stop at the count make this fewer than ``rows * program.row_insns``;
+    on the card a warp runs the largest count among its rows."""
+    ts = list(packed.values())
+    _check(bool(ts) and not _on_cpu(*ts),
+           'status_vm_executed counts the card kernel\'s instructions')
+    counter = torch.zeros(1, dtype=torch.int64, device=ts[0].device)
+    _status_vm(packed, program, counter)
+    return int(counter.item())
+
+
+def _status_vm(packed, program, counter):
+    # status_vm, and with ``counter`` (an int64 CUDA tensor [1]) the
+    # instructions the launch interprets added to it
     from .vm import BUFFERS
     _check(bool(packed), 'packed holds no buffer')
     ts = list(packed.values())
@@ -118,8 +154,7 @@ def status_vm(packed: Dict[str, torch.Tensor], program
     d_u = make((rows, program.n_uniq), dtype=torch.int8, device=dev)
     fd_u = make((rows, program.n_cols_u), dtype=torch.int32, device=dev)
     adm = torch.empty((rows, program.n_adm), dtype=torch.int8, device=dev)
-    n_trees = program.trees.shape[0]
-    if rows == 0 or n_trees == 0:
+    if rows == 0 or program.n_groups == 0:
         return s_u, d_u, fd_u, adm
     import ctypes
     from . import _build
@@ -130,15 +165,21 @@ def status_vm(packed: Dict[str, torch.Tensor], program
                        (ctypes.c_longlong * 5)(*widths), rows,
                        tab['code'].data_ptr(), tab['lanes'].data_ptr(),
                        tab['i64'].data_ptr(), tab['f64'].data_ptr(),
-                       tab['bytes'].data_ptr(), tab['trees'].data_ptr(),
-                       n_trees, s_u.data_ptr(), d_u.data_ptr(),
+                       tab['bytes'].data_ptr(), len(program.i64),
+                       len(program.f64), len(program.bytes),
+                       tab['warps'].data_ptr(), tab['groups'].data_ptr(),
+                       program.n_groups, program.group_warps,
+                       program.smem_bytes, s_u.data_ptr(), d_u.data_ptr(),
                        fd_u.data_ptr(),
                        adm.data_ptr() if program.n_adm else None,
                        program.n_uniq, program.n_cols_u, program.n_adm,
+                       counter.data_ptr() if counter is not None else None,
                        _stream(ts[0]))
     if rc != 0:
         raise RuntimeError(f'k1_vm launch failed: CUDA error {rc}')
     LAUNCHES['k1_vm'] += 1
+    K1V_GROUPS['staged'] += program.n_staged
+    K1V_GROUPS['global'] += program.n_groups - program.n_staged
     return s_u, d_u, fd_u, adm
 
 

@@ -1,9 +1,9 @@
 """Lowering of the status programs to K1v bytecode (``csrc/k1_vm.cuh``).
 
 K1v evaluates every unique status tree of a policy set over a batch in
-one launch: one thread per (row, tree) runs the tree's instruction
-stream against the packed ``[R, W]`` lane buffers of ``pack_batch``.
-This module turns each tree into that stream.  It mirrors the eager
+one launch: one thread per (row, part of a tree) runs the part's
+instruction stream against the packed ``[R, W]`` lane buffers of
+``pack_batch``.  This module turns each tree into that stream.  It mirrors the eager
 walk of ``ops/eval.py`` (``leaf_op_tf``, ``string_term_tf``,
 ``cond_tf``, ``_cond_b_tf``, ``eval_status`` and ``_adm_match_graph``)
 function by function, so the two can be read side by side: where the
@@ -39,6 +39,20 @@ The per-row admission match (K1i) is one more entry per eligible
 program of the policy set's admission table: a boolean over the
 ``__adm*`` lanes whose ``AEND`` writes the program's int8 admission
 column.
+
+Parts.  A tree whose root is a ``seq`` of several children is cut into
+parts, runs of consecutive children (``_split``, bounded by
+``PART_INSNS``), that run on warps of one block in parallel; each ends
+in ``PEND``, and the kernel folds a tree's parts in child order as
+``SSEQ`` does.  Parts are packed into groups of ``GROUP_WARPS``
+(``_pack``), one block per (row tile, group), and each group's
+instructions and lanes are laid out contiguously so that its block can
+stage them in shared memory (``Program``).
+
+Loops that stop at the count.  A loop whose elements at or past the
+row's count provably add the reduction's identity is marked with that
+count's lane and runs only up to it (``Lowering.count_lane`` states the
+rule); any other loop runs its full width.
 
 Lowering is per (evaluator, pack layout): lanes resolve to (buffer,
 column, element stride) of the layout, loop widths to its element and
@@ -86,7 +100,7 @@ OPS = ('K', 'TAG', 'LB', 'CI', 'ABSLE', 'F64', 'F64DUR', 'BYTES', 'GLOB',
        'BLOCK', 'MASK', 'FIXF', 'BOR', 'BLOCKT', 'BLOCKF', 'STORE', 'LOAD',
        'LOOP', 'ENDLOOP', 'SCONST', 'SFROMK', 'SVARERR', 'SFAILGUARD',
        'STRACKFAIL', 'SSEQ', 'SANY', 'SEQUALITY', 'SCOND', 'SLOOP',
-       'SENDLOOP', 'SFORALL', 'SEXISTS', 'SSCALARS', 'END', 'SUSP',
+       'SENDLOOP', 'SFORALL', 'SEXISTS', 'SSCALARS', 'PEND', 'SUSP',
        'IDXLAST', 'PACK2', 'IDIN', 'SFEBEGIN', 'SFEENTRY', 'SFEEND', 'AEND')
 OP = {name: i for i, name in enumerate(OPS)}
 #: comparison codes (k1_vm.cuh k1vm_cmp)
@@ -104,6 +118,35 @@ INSN_WORDS = 6
 LANE_WORDS = 8
 #: the foreach list element's loop level
 FE_LEVEL = 3
+#: instruction words that hold a lane-table index, per opcode (LOOP's and
+#: SLOOP's word 5 only when it is not -1)
+LANE_WORDS_OF = {
+    'TAG': (1,), 'LB': (1,), 'CI': (1,), 'ABSLE': (1,), 'F64': (1,),
+    'F64DUR': (1,), 'BYTES': (1,), 'GLOB': (1, 2, 3), 'IDXLT': (1,),
+    'IDXLAST': (1,), 'SUSP': (1, 2), 'IDIN': (1,), 'SVARERR': (1,),
+    'SSCALARS': (1, 2), 'SFORALL': (1, 2), 'SEXISTS': (1, 2),
+    'LOOP': (5,), 'SLOOP': (5,)}
+
+# --- the launch (k1_vm.cu) ---------------------------------------------------
+#: rows of a block: one warp's lanes
+TILE_ROWS = 32
+#: warps of a block, and so the most parts of one tree (a tree's parts
+#: fold in its block's shared memory)
+GROUP_WARPS = 8
+#: a ``seq`` root's children are cut into parts of consecutive children
+#: whose instructions per row (``_Gen.dyn``, at the layout's widths) stay
+#: within this, a child past it alone; where that gives more than
+#: GROUP_WARPS parts, the least bound that gives GROUP_WARPS
+PART_INSNS = 1024
+#: instructions of a group, unless one tree alone has more: what a block
+#: stages stays near this (24 bytes each, and their lanes)
+GROUP_INSNS = 2048
+#: the most bytes of tables (instructions, lanes, constant pools) a block
+#: copies into shared memory; a group past it reads them from device
+#: memory (the kernel's global mode)
+STAGE_BYTES = 96 * 1024
+#: bytes of one part's slot: a K1vmStatus
+SLOT_BYTES = 8
 
 _BYTE_LANES = frozenset({'str_head', 'str_tail'})
 _CONV = (TAG_STRING, TAG_INT, TAG_FLOAT, TAG_BOOL)
@@ -219,6 +262,101 @@ def k_any(parts: Sequence[X]) -> X:
 
 class LoweringError(ValueError):
     """A tree outside the kernel's vocabulary or limits."""
+
+
+# ---------------------------------------------------------------------------
+# loops that stop at the row's count
+
+#: the reductions' identities: known-true for AND, known-false for OR,
+#: no bit for a bitwise OR
+_IDENTITY = {RED_AND: 1, RED_OR: 2, RED_BOR: 0}
+
+
+def _kand(x: int, y: int) -> int:
+    return ((x & y) & 1) | ((x | y) & 2)
+
+
+def _kor(x: int, y: int) -> int:
+    return ((x | y) & 1) | ((x & y) & 2)
+
+
+def _known(v) -> int:
+    return 1 if v else 2
+
+
+_UNARY = {'NOT': lambda v: ((v & 1) << 1) | ((v >> 1) & 1),
+          'TOF': lambda v: _known(v & 1), 'FOF': lambda v: _known(v & 2),
+          'UOF': lambda v: _known((v & 3) == 0),
+          'FIXF': lambda v: 1 if v & 1 else v}
+
+
+def _past(x: X, lane: int, level: int, env: Dict[int, Optional[int]]
+          ) -> Optional[int]:
+    """The two bits node ``x`` holds at every element whose index at
+    ``level`` is at or past the count in lane ``lane``, where
+    ``IDXLT(lane, level)`` is known-false, if they follow from the node
+    alone (k1_vm.cuh's semantics of each opcode, evaluated on what is
+    known); None if they do not.  A nested loop is not looked into."""
+    op, a = x.op, x.args
+    if op == 'IDXLT':
+        return 2 if (a[0], a[1]) == (lane, level) else None
+    if op == 'K':
+        return a[0]
+    if op == 'VAR':
+        return env.get(a[0])
+    if op == 'LET':
+        inner = dict(env)
+        inner[a[0]] = _past(a[1], lane, level, env)
+        return _past(a[2], lane, level, inner)
+    if op in _UNARY:
+        v = _past(a[0], lane, level, env)
+        return None if v is None else _UNARY[op](v)
+    if op not in ('AND', 'OR', 'PAIR', 'TU', 'BLOCK', 'MASK', 'BOR',
+                  'BLOCKT', 'BLOCKF', 'PACK2'):
+        return None
+    p = _past(a[0], lane, level, env)
+    q = _past(a[1], lane, level, env)
+    if op == 'AND' and 2 in (p, q):
+        return 2
+    if op == 'OR' and 1 in (p, q):
+        return 1
+    if op == 'TU' and p is not None and p & 1:
+        return 1
+    if op in ('BLOCK', 'MASK', 'BLOCKT', 'BLOCKF') and q is not None:
+        hit = bool(q & 1) if op != 'MASK' else not q & 1
+        if not hit:
+            return p
+        if op in ('BLOCK', 'MASK'):
+            return 0
+        return None if p is None else p & (2 if op == 'BLOCKT' else 1)
+    if p is None or q is None:
+        return None
+    if op == 'AND':
+        return _kand(p, q)
+    if op == 'OR':
+        return _kor(p, q)
+    if op == 'PAIR':
+        return (p & 1) | ((q & 1) << 1)
+    if op == 'TU':
+        return 2 if not q & 1 else 0
+    if op == 'BOR':
+        return p | q
+    if op == 'PACK2':
+        return (p & 3) | ((q & 3) << 2)
+    return None
+
+
+def _idxlt_lanes(x: X, level: int, out: List[int]) -> List[int]:
+    """The count lanes of the ``IDXLT`` nodes at ``level`` in ``x``,
+    outside nested loops, in order of first appearance."""
+    if x.op == 'IDXLT':
+        if x.args[1] == level and x.args[0] not in out:
+            out.append(x.args[0])
+    elif x.op not in ('LOOP', 'SLOOP'):
+        for arg in x.args:
+            if isinstance(arg, X):
+                _idxlt_lanes(arg, level, out)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1102,7 +1240,34 @@ class Lowering:
         return View(self, prefix, (FE_LEVEL,) if prefix[0] == 'e' else ())
 
     def loop(self, level: int, width: int, red: int, body: X) -> X:
-        return X('LOOP', level, width, red, body)
+        """A loop over ``level`` reducing ``body`` with ``red``, marked
+        with the count lane past whose value it may stop
+        (``count_lane``)."""
+        return X('LOOP', level, width, red, body,
+                 self.count_lane(body, level, _IDENTITY[red]))
+
+    def count_lane(self, x: X, level: int, identity: int,
+                   mask: int = 3) -> int:
+        """The stop rule.  A loop over ``level`` may stop at the row's
+        count in lane L when every element at or past it gives its
+        reduction's identity: ``x`` evaluates there, from
+        ``IDXLT(L, level)`` being known-false and from what is known of
+        each opcode, to ``identity`` in the bits of ``mask`` (``_past``;
+        for example ``~valid | x`` under AND, ``valid & x`` under OR,
+        ``MASK(x, valid)`` and the foreach entries' ``PACK2`` of pairs
+        of ``valid & ...`` under a bitwise OR).  L must not vary with
+        the loop's own index.  The candidates are the loop's own
+        ``IDXLT`` nodes, outside nested loops, so a deeper level's count
+        never stops an outer loop.  Returns L, or -1 where no candidate
+        is proved: the loop then runs its full width."""
+        coef = 3 + level if level < 3 else 7
+        for lane in _idxlt_lanes(x, level, []):
+            if self.lane_rows[lane][coef]:
+                continue
+            got = _past(x, lane, level, {})
+            if got is not None and got & mask == identity:
+                return lane
+        return -1
 
     # boolean expressions ---------------------------------------------------
 
@@ -1224,7 +1389,10 @@ class Lowering:
                                                body), tag, ovf,
                          self.site_fd(node))
             sub = self.status(node.sub, depth + 1, aux)
-            loop = X('SLOOP', depth, self.L.E, sub, valid)
+            # SENDLOOP folds only valid elements (bit 0 of ``valid``),
+            # and element 0's fail detail, which the loop always runs
+            loop = X('SLOOP', depth, self.L.E, sub, valid,
+                     self.count_lane(valid, depth, 0, mask=1))
             if kind == 'exists':
                 return X('SEXISTS', loop, tag, ovf, self.site_fd(node))
             return X('SFORALL', loop, tag, ovf, self.site_fd(node))
@@ -1487,8 +1655,8 @@ class _Gen:
             self.put('LOAD', self.var_slot[a[0]])
             self.push_k()
         elif op == 'LOOP':
-            level, width, red, body = a
-            start = self.put('LOOP', level, width, red, 0)
+            level, width, red, body, lane = a
+            start = self.put('LOOP', level, width, red, 0, lane)
             mult = self._mult
             self._frame(+1, width)
             self.kleene(body)
@@ -1553,8 +1721,8 @@ class _Gen:
             self.k -= 1
             self.push_s()
         elif op in ('SFORALL', 'SEXISTS'):
-            level, width, sub, valid = a[0].args
-            start = self.put('SLOOP', level, width, 0, 0)
+            level, width, sub, valid, lane = a[0].args
+            start = self.put('SLOOP', level, width, 0, 0, lane)
             mult = self._mult
             self._frame(+1, width)
             self.status(sub)
@@ -1580,10 +1748,13 @@ class _Gen:
         else:
             raise LoweringError(f'not a status node: {op}')
 
-    def tree(self, x: X, col: int) -> int:
+    def part(self, x: X) -> int:
+        """A status tree or one part of it: its ``PEND`` leaves the
+        triple in the part's slot, which the kernel's epilogue folds
+        into the tree's column."""
         start = len(self.code)
         self.status(x)
-        self.put('END', col)
+        self.put('PEND')
         self.s -= 1
         assert self.k == 0 and self.s == 0 and self.frames == 0
         return start
@@ -1630,15 +1801,26 @@ def has_adm_lanes(layout: Dict) -> bool:
 
 
 class Program:
-    """K1v's bytecode for one (evaluator, layout): the instruction
-    stream, lane table, pools and per-entry points, as numpy arrays;
-    ``device_tables`` keeps them on each device once.  An entry is a
-    status tree (its ``END`` writes unique column ``col``) or the
-    admission match of an eligible program (its ``AEND`` writes
-    admission column ``col``)."""
+    """K1v's bytecode for one (evaluator, layout) and its launch plan, as
+    numpy arrays; ``device_tables`` keeps them on each device once.
+
+    An entry is a status tree, whose parts (``_lower_trees``) each end in
+    ``PEND``, or the admission match of an eligible program, whose
+    ``AEND`` writes admission column ``col``.  Entries are packed into
+    groups of ``GROUP_WARPS`` parts, a tree's parts in one group: the
+    kernel runs a block per (tile of ``TILE_ROWS`` rows, group) and a
+    warp per part.  ``warps`` holds, per (group, warp), the part's first
+    instruction (-1: no part), the parts the warp folds into the tree's
+    column in the epilogue (its tree's part count on the first part, 0
+    otherwise) and that column.  ``groups`` holds each group's
+    instruction range, its lane range and whether the block stages them
+    in shared memory (``staged``), which it does when they and the
+    constant pools fit ``STAGE_BYTES``."""
 
     def __init__(self, gen: _Gen, lanes: List[Tuple[int, ...]],
-                 trees: List[Tuple[int, int]], vm_cols: List[int],
+                 warps: List[Tuple[int, int, int]],
+                 groups: List[Tuple[int, int, int, int]],
+                 tree_parts: Dict[int, int], vm_cols: List[int],
                  n_uniq: int, n_cols_u: int, n_adm: int = 0):
         self.code = np.asarray(gen.code, np.int32).reshape(-1, INSN_WORDS)
         self.lanes = np.asarray(lanes, np.int32).reshape(-1, LANE_WORDS)
@@ -1646,9 +1828,14 @@ class Program:
         self.f64 = np.asarray(gen.f64 or [0.0], np.float64)
         self.bytes = np.frombuffer(bytes(gen.bytes) or b'\0',
                                    np.uint8).copy()
-        #: per kernel entry: (first instruction, unique or admission
-        #: column); the status trees first, then the admission entries
-        self.trees = np.asarray(trees, np.int32).reshape(-1, 2)
+        self.warps = np.asarray(warps, np.int32).reshape(-1, 3)
+        self.group_warps = GROUP_WARPS
+        self.groups = np.asarray([g + (0,) for g in groups],
+                                 np.int32).reshape(-1, 5)
+        self._stage(STAGE_BYTES)
+        #: parts per status tree (unique column) of the program
+        self.tree_parts = dict(tree_parts)
+        self.n_entries = len(tree_parts) + n_adm
         self.vm_cols = list(vm_cols)
         self.n_uniq = n_uniq
         self.n_cols_u = n_cols_u
@@ -1661,8 +1848,43 @@ class Program:
         self.row_bytes = 0
         self.layout = None
         #: instructions one row executes over all the program's entries
+        #: with every loop at its full width (a loop that stops at the
+        #: count runs fewer)
         self.row_insns = gen.dyn
-        self._dev: Dict[Any, Dict[str, Any]] = {}
+
+    def _stage(self, budget: int) -> None:
+        """Stage each group whose tables (its instructions and lanes and
+        the constant pools) fit ``budget`` bytes; ``smem_bytes``, a
+        block's dynamic shared memory, holds the slots and the largest
+        staged group's tables (k1_vm.cu's layout)."""
+        pools = 8 * len(self.i64) + 8 * len(self.f64) + len(self.bytes)
+        g = self.groups
+        need = pools + 4 * INSN_WORDS * (g[:, 1] - g[:, 0]) + \
+            4 * LANE_WORDS * (g[:, 3] - g[:, 2])
+        g[:, 4] = need <= budget
+        #: groups staged in shared memory (the rest run the global mode)
+        self.n_staged = int(g[:, 4].sum())
+        self.smem_bytes = GROUP_WARPS * TILE_ROWS * SLOT_BYTES + int(
+            need[g[:, 4] == 1].max(initial=0))
+        self._dev = {}
+
+    def restaged(self, budget: int) -> 'Program':
+        """This program with its groups staged under another budget
+        (0: every block reads the device tables, the kernel's global
+        mode), to measure or test one mode against the other."""
+        import copy
+        out = copy.copy(self)
+        out.groups = self.groups.copy()
+        out._stage(budget)
+        return out
+
+    @property
+    def n_groups(self) -> int:
+        return self.groups.shape[0]
+
+    def blocks(self, rows: int) -> int:
+        """Blocks of a launch over ``rows`` rows."""
+        return -(-rows // TILE_ROWS) * self.n_groups
 
     def device_tables(self, device) -> Dict[str, Any]:
         import torch
@@ -1670,7 +1892,7 @@ class Program:
         if hit is None:
             hit = {name: torch.from_numpy(getattr(self, name)).to(device)
                    for name in ('code', 'lanes', 'i64', 'f64', 'bytes',
-                                'trees')}
+                                'warps', 'groups')}
             self._dev[device] = hit
         return hit
 
@@ -1687,23 +1909,176 @@ def _limits(gen: _Gen) -> Optional[str]:
     return None
 
 
+def _dyn(x: X) -> int:
+    """Instructions one row executes for status node ``x`` at full
+    width."""
+    gen = _Gen()
+    gen.status(x)
+    return gen.dyn
+
+
+def _runs(dyns: Sequence[int], bound: int) -> int:
+    """How many runs of consecutive items the greedy cut makes when a
+    run's ``dyns`` stay within ``bound`` (an item past it alone)."""
+    n, acc = 0, None
+    for d in dyns:
+        if acc is None or acc + d > bound:
+            n, acc = n + 1, 0
+        acc += d
+    return n
+
+
+def _split(kids: List[X]) -> List[X]:
+    """The parts of a ``seq`` root with children ``kids``.  Their number
+    is that of the runs of consecutive children within ``PART_INSNS``
+    instructions (``_Gen.dyn``), at most ``GROUP_WARPS``; the cut into
+    that many runs is the one whose largest run is least, and among
+    those the most even (least sum of squares).  Each part is the SSEQ
+    fold of its run."""
+    dyns = [_dyn(k) for k in kids]
+    n = min(_runs(dyns, PART_INSNS), GROUP_WARPS)
+    pre = [0]
+    for d in dyns:
+        pre.append(pre[-1] + d)
+    lo, hi = max(dyns), pre[-1]
+    while lo < hi:                   # the least largest run of n runs
+        mid = (lo + hi) // 2
+        if _runs(dyns, mid) <= n:
+            hi = mid
+        else:
+            lo = mid + 1
+    # best[k][i]: (sum of squares, previous cut) of the first i children
+    # in k runs of at most lo instructions each
+    inf = (float('inf'), -1)
+    best = [[inf] * (len(kids) + 1) for _ in range(n + 1)]
+    best[0][0] = (0, -1)
+    for k in range(1, n + 1):
+        for i in range(1, len(kids) + 1):
+            for j in range(k - 1, i):
+                run = pre[i] - pre[j]
+                if run <= lo and best[k - 1][j][0] + run * run < best[k][i][0]:
+                    best[k][i] = (best[k - 1][j][0] + run * run, j)
+    cuts, i = [], len(kids)
+    for k in range(n, 0, -1):
+        j = best[k][i][1]
+        cuts.append((j, i))
+        i = j
+    parts = []
+    for a, b in reversed(cuts):
+        out = kids[a]
+        for kid in kids[a + 1:b]:
+            out = X('SSEQ', out, kid)
+        parts.append(out)
+    return parts
+
+
+def _pack(units: Sequence[Tuple[int, int]]) -> List[List[int]]:
+    """Units of (parts, instructions) packed into groups of GROUP_WARPS
+    warps whose instructions stay within GROUP_INSNS (a larger unit
+    alone): each unit goes to the fullest open group it fits, else opens
+    a group."""
+    groups: List[List[int]] = []
+    free: List[int] = []
+    insns: List[int] = []
+    open_: List[int] = []
+    for i, (n, c) in enumerate(units):
+        fits = [g for g in open_ if free[g] >= n and
+                insns[g] + c <= GROUP_INSNS]
+        if fits:
+            g = min(fits, key=lambda g: free[g])
+        else:
+            g = len(groups)
+            groups.append([])
+            free.append(GROUP_WARPS)
+            insns.append(0)
+            open_.append(g)
+        groups[g].append(i)
+        free[g] -= n
+        insns[g] += c
+        if not free[g]:
+            open_.remove(g)
+    return groups
+
+
+def _remap_lanes(code: List[List[int]], lane_rows: List[Tuple[int, ...]],
+                 ranges: List[Tuple[int, int]]):
+    """A lane table per group, each group's lanes contiguous (a lane two
+    groups read appears in both), and the instructions' lane words
+    rewritten to index it: (lanes, [(lane_lo, lane_hi)])."""
+    lanes: List[Tuple[int, ...]] = []
+    spans = []
+    for lo, hi in ranges:
+        local: Dict[int, int] = {}
+        base = len(lanes)
+        for ins in code[lo:hi]:
+            for w in LANE_WORDS_OF.get(OPS[ins[0]], ()):
+                if ins[w] < 0:
+                    continue
+                hit = local.get(ins[w])
+                if hit is None:
+                    hit = local[ins[w]] = len(lanes)
+                    lanes.append(lane_rows[ins[w]])
+                ins[w] = hit
+        spans.append((base, len(lanes)))
+    return lanes, spans
+
+
+def _emit(gen: _Gen, col: int, parts: List[X], is_adm: bool
+          ) -> List[Tuple[int, int, int]]:
+    """Generate one entry's parts into ``gen``; returns their warps'
+    rows (first instruction, parts to fold, column): the first part of
+    a status tree folds them all into its column, an admission entry's
+    ``AEND`` writes its own."""
+    if is_adm:
+        return [(gen.adm(parts[0], col), 0, 0)]
+    pcs = [gen.part(part) for part in parts]
+    return [(pcs[0], len(parts), col)] + [(pc, 0, 0) for pc in pcs[1:]]
+
+
 def _lower_trees(info: TreeInfo, layout: Layout, trees: Sequence[int],
                  adm: bool = False):
     """Lower unique trees ``trees`` (and, with ``adm``, the admission
-    entries) into one instruction stream with one lane table: (gen,
-    (lanes, lane rows, lanes read), [(entry pc, column)])."""
-    gen = _Gen()
+    entries) into one instruction stream: (gen, lanes, lanes read,
+    warps, groups, parts per tree).  A tree whose root is a ``seq`` of
+    several children is cut into parts (``_split``), any other tree and
+    each admission entry is one part; the parts are packed into groups
+    (``_pack``) and generated group by group, so that each group's
+    instructions, and then its lanes (``_remap_lanes``), are
+    contiguous."""
     tables = ({}, [], set())
-    entries: List[Tuple[int, int]] = []
+    units = []      # (column, parts, admission entry)
     for u in trees:
         lw = Lowering(info, layout, tables)
-        node = lw.status(info.trees[u], 0, [info.n_uniq + info.aux_base[u]])
-        entries.append((gen.tree(node, u), u))
+        aux = [info.n_uniq + info.aux_base[u]]
+        tree = info.trees[u]
+        if tree.kind == 'seq' and len(tree.children) > 1:
+            parts = _split([lw.status(c, 0, aux) for c in tree.children])
+        else:
+            parts = [lw.status(tree, 0, aux)]
+        units.append((u, parts, False))
     if adm:
         for col, prog in enumerate(info.adm_table.programs):
             lw = Lowering(info, layout, tables)
-            entries.append((gen.adm(adm_entry(lw, prog), col), col))
-    return gen, tables, entries
+            units.append((col, [adm_entry(lw, prog)], True))
+    sizes = []
+    for unit in units:
+        trial = _Gen()
+        _emit(trial, *unit)
+        sizes.append((len(unit[1]), len(trial.code)))
+    gen = _Gen()
+    warps: List[Tuple[int, int, int]] = []
+    ranges: List[Tuple[int, int]] = []
+    for members in _pack(sizes):
+        lo = len(gen.code)
+        for i in members:
+            warps += _emit(gen, *units[i])
+        warps += [(-1, 0, 0)] * (-len(warps) % GROUP_WARPS)
+        ranges.append((lo, len(gen.code)))
+    lanes, spans = _remap_lanes(gen.code, tables[1], ranges)
+    groups = [r + sp for r, sp in zip(ranges, spans)]
+    tree_parts = {col: len(parts) for col, parts, is_adm in units
+                  if not is_adm}
+    return gen, lanes, tables[2], warps, groups, tree_parts
 
 
 def route_trees(info: TreeInfo, probe_layout: Dict) -> Dict[int, Tuple[str, str]]:
@@ -1720,8 +2095,7 @@ def route_trees(info: TreeInfo, probe_layout: Dict) -> Dict[int, Tuple[str, str]
     layout = Layout(probe_layout)
     routes: Dict[int, Tuple[str, str]] = {}
     for u in range(len(info.trees)):
-        gen, _tables, _entries = _lower_trees(info, layout, [u])
-        over = _limits(gen)
+        over = _limits(_lower_trees(info, layout, [u])[0])
         routes[u] = ('eager', over) if over else ('vm', 'lowered')
     return routes
 
@@ -1749,13 +2123,14 @@ def lower(info: TreeInfo, vm_trees: Sequence[int], layout: Dict) -> Program:
     one admission entry per eligible program when the policy set has an
     admission table and the layout carries the admission lanes."""
     adm = info.adm_table is not None and has_adm_lanes(layout)
-    gen, tables, entries = _lower_trees(info, Layout(layout), vm_trees, adm)
+    gen, lanes, read, warps, groups, tree_parts = _lower_trees(
+        info, Layout(layout), vm_trees, adm)
     over = _limits(gen)
     if over:
         raise LoweringError(f'K1v limit exceeded at this layout: {over}')
-    prog = Program(gen, tables[1], entries, list(vm_trees), info.n_uniq,
-                   info.n_cols_u,
+    prog = Program(gen, lanes, warps, groups, tree_parts, list(vm_trees),
+                   info.n_uniq, info.n_cols_u,
                    len(info.adm_table.programs) if adm else 0)
-    prog.row_bytes = _row_bytes(layout, tables[2])
+    prog.row_bytes = _row_bytes(layout, read)
     prog.layout = layout
     return prog

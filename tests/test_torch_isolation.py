@@ -60,7 +60,8 @@ def test_blocker_matches_exact_names():
 
 def test_no_source_imports_jax_or_the_jax_package():
     files = [p for _rel, p in _port_sources()]
-    files.append(os.path.join(ROOT, 'chip_smoke.py'))
+    files += [os.path.join(ROOT, 'chip_smoke.py'),
+              os.path.join(ROOT, 'k1v_bench.py')]
     bad = [(os.path.relpath(p, ROOT), m) for p in files
            for m in _imports(p) if _blocked(m)]
     assert bad == []

@@ -25,7 +25,8 @@ from kyverno_tpu.compiler.ir import (TAG_ARRAY, TAG_BOOL, TAG_FLOAT,
                                      TAG_INT, TAG_MAP, TAG_MISSING,
                                      TAG_NULL, TAG_STRING)
 from kyverno_tpu.ops.eval import _View
-from kyverno_tpu_torch.ops import kernels
+from kyverno_tpu_torch.ops import kernels, vm
+from test_torch_vm import host_vm  # noqa: F401
 
 ALL_TAGS = (TAG_MISSING, TAG_NULL, TAG_BOOL, TAG_INT, TAG_FLOAT, TAG_STRING,
             TAG_MAP, TAG_ARRAY)
@@ -343,6 +344,119 @@ def test_k1v_cuda_kernel_matches_eager_walk(name, cuda):
             assert torch.equal(g.cpu(), w.cpu()), (name, seed)
 
 
+def _k1v_card_case(name, rows, cuda):
+    """(evaluator, program, packed numpy buffers, layout) of pack
+    ``name`` over ``rows`` encoded rows, the evaluator on the card."""
+    from test_torch_reference import load_pack, make_resources
+    from kyverno_tpu_torch.compiler.compile import compile_policies
+    from kyverno_tpu_torch.compiler.encode import encode_batch
+    from kyverno_tpu_torch.ops.eval import build_evaluator, pack_batch
+    _jp, tp = load_pack(name)
+    tc = compile_policies(tp)
+    ev = build_evaluator(tc, cuda)
+    packed, layout = pack_batch(encode_batch(make_resources(name, rows), tc,
+                                             padded_n=rows).tensors())
+    return ev, ev.plan_for(layout).program, packed, layout
+
+
+def _k1v_equal(program, bufs, cuda, label):
+    card = {k: torch.from_numpy(np.ascontiguousarray(v)).to(cuda)
+            for k, v in bufs.items()}
+    before = kernels.LAUNCHES['k1_vm']
+    got = kernels.status_vm(card, program)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['k1_vm'] == before + 1
+    want = program.plain(card)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w.cpu()), label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('rows', [64, 16384])
+@pytest.mark.parametrize('name', ['compiler', 'conditions', 'pss', 'smoke',
+                                  'wildcard_keys'])
+def test_k1v_parts_match_eager_walk_at_64_rows_and_a_chunk(name, rows, cuda):
+    """K1v's parts, folded in the launch, and its loops that stop at
+    each warp's largest count, against the eager walk on the same card
+    tensors at the admission capacity and at a scan chunk, on encoded
+    rows and on fuzzed lanes: bit-equal; every group staged."""
+    from test_torch_vm import _fuzz_packed
+    _ev, program, packed, layout = _k1v_card_case(name, rows, cuda)
+    assert program.groups[:, 4].all()
+    for seed, bufs in enumerate([packed] + [_fuzz_packed(packed, layout, s)
+                                            for s in range(2)]):
+        _k1v_equal(program, bufs, cuda, (name, rows, seed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', ['pss', 'smoke'])
+def test_k1v_global_mode_matches_eager_walk(name, cuda):
+    """With a staging budget of 0 every block reads the device tables
+    (the kernel's global mode): bit-equal to the eager walk, and the
+    wrapper counts the groups it launched in that mode."""
+    from test_torch_vm import _fuzz_packed
+    _ev, program, packed, layout = _k1v_card_case(name, 320, cuda)
+    flat = program.restaged(0)
+    assert not flat.groups[:, 4].any()
+    assert flat.smem_bytes == vm.GROUP_WARPS * vm.TILE_ROWS * vm.SLOT_BYTES
+    kernels.reset_launches()
+    for seed, bufs in enumerate([packed, _fuzz_packed(packed, layout, 1)]):
+        _k1v_equal(flat, bufs, cuda, (name, seed))
+    assert kernels.K1V_GROUPS == {'staged': 0, 'global': 2 * flat.n_groups}
+
+
+@pytest.mark.cuda
+def test_k1v_more_than_65535_entries_on_the_card(cuda, host_vm):
+    """A program of 66,000 entries runs in one launch on the card, equal
+    to the host build of the interpreter."""
+    from test_torch_vm import run_host
+    from test_torch_vm_parts import _many_entries
+    prog, _one, packed = _many_entries(22_000)
+    assert prog.n_entries > 65535
+    card = {k: torch.from_numpy(np.ascontiguousarray(v)).to(cuda)
+            for k, v in packed.items()}
+    got = kernels.status_vm(card, prog)
+    torch.cuda.synchronize()
+    want = run_host(host_vm, prog, packed)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w), 'more than 65,535 entries'
+
+
+def test_k1v_executed_count_is_the_card_kernels():
+    """``status_vm_executed`` counts the card kernel's instructions: a
+    CPU batch has no kernel to count."""
+    from test_torch_reference import make_resources
+    from test_torch_eval import _evaluators
+    from kyverno_tpu_torch.compiler.encode import encode_batch
+    from kyverno_tpu_torch.ops.eval import shard_batch
+    _jc, _jev, tc, tev = _evaluators('smoke')
+    packed, layout = shard_batch(encode_batch(make_resources('smoke', 4), tc,
+                                              padded_n=4).tensors(), 'cpu')
+    with pytest.raises(ValueError):
+        kernels.status_vm_executed(packed, tev.plan_for(layout).program)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', ['pss', 'smoke'])
+def test_k1v_executed_instructions_on_the_card(name, cuda):
+    """With every count past its width each warp runs every loop to its
+    width: the card interprets exactly ``rows * row_insns``
+    instructions; with the encoded counts, fewer."""
+    _ev, program, packed, layout = _k1v_card_case(name, 320, cuda)
+    counts = {}
+    for label, bufs in (('encoded', packed), ('past', {
+            k: np.array(v, copy=True) for k, v in packed.items()})):
+        if label == 'past':
+            for lane, (g, off, width, _t) in layout.items():
+                if lane.endswith('_count'):
+                    bufs[g][:, off:off + width] = 1 << 20
+        card = {k: torch.from_numpy(np.ascontiguousarray(v)).to(cuda)
+                for k, v in bufs.items()}
+        counts[label] = kernels.status_vm_executed(card, program)
+    assert counts['past'] == 320 * program.row_insns
+    assert counts['encoded'] < counts['past']
+
+
 @pytest.mark.cuda
 def test_eager_float64_division_is_ieee_on_the_card(cuda):
     """The eager walk's float64 quotients (``float(key)`` of a milli or
@@ -357,3 +471,69 @@ def test_eager_float64_division_is_ieee_on_the_card(cuda):
         want = x.to(torch.float64) / div
         got = _fdiv(x.to(cuda), div).cpu()
         assert torch.equal(got, want), div
+
+
+# ---------------------------------------------------------------------------
+# the profiler's kernel events against the wrappers' launch counts
+
+def _events(k1v_seen):
+    from types import SimpleNamespace
+    from torch.autograd import DeviceType
+    return [SimpleNamespace(device_type=DeviceType.CUDA, count=k1v_seen,
+                            key='(anonymous namespace)::k1_vm_kernel'),
+            SimpleNamespace(device_type=DeviceType.CPU, count=9,
+                            key='k1_vm_kernel'),
+            SimpleNamespace(device_type=DeviceType.CUDA, count=2,
+                            key='fdet_select_kernel(int const*)')]
+
+
+def test_kernel_event_counts_set_launches_beside_events():
+    from kyverno_tpu_torch.observability.profiling import kernel_event_counts
+    got = kernel_event_counts(_events(3), {'k1_vm': 4},
+                              {'k1_vm': 9, 'k1h_fdet_select': 2})
+    assert got == {'k1_vm': {'launches': 5, 'profiler_events': 3},
+                   'k1h_fdet_select': {'launches': 2, 'profiler_events': 2}}
+
+
+@pytest.mark.parametrize('seen', [3, 5])
+def test_deep_profile_says_when_device_time_may_be_under_counted(
+        seen, tmp_path, monkeypatch):
+    """``deep_profile`` compares the kernel events of its trace with the
+    launches the wrappers counted meanwhile, and says in its output that
+    device time may be under-counted when the trace missed some."""
+    from kyverno_tpu_torch.observability import profiling
+    import torch.profiler as tp
+
+    class FakeProfile:
+        def __init__(self, activities):
+            pass
+
+        def start(self):
+            pass
+
+        def stop(self):
+            pass
+
+        def key_averages(self):
+            return _events(seen)
+
+        def export_chrome_trace(self, path):
+            open(path, 'w').write('{}')
+
+    def launches_while_sampling(seconds):
+        kernels.LAUNCHES['k1_vm'] += 5
+        kernels.LAUNCHES['k1h_fdet_select'] += 2
+        return ''
+
+    monkeypatch.setattr(profiling, '_cuda_live', lambda: True)
+    monkeypatch.setattr(tp, 'profile', FakeProfile)
+    monkeypatch.setattr(profiling, 'sample_profile', launches_while_sampling)
+    monkeypatch.setattr(kernels, 'LAUNCHES', dict(kernels.LAUNCHES))
+    out = profiling.deep_profile(0.01, out_dir=str(tmp_path))
+    assert out['torch_trace']
+    if seen < 5:
+        assert out['kernel_events'] == {
+            'k1_vm': {'launches': 5, 'profiler_events': seen}}
+        assert 'under-counted' in out['note']
+    else:
+        assert 'note' not in out and 'kernel_events' not in out

@@ -48,17 +48,21 @@ def host_vm(tmp_path_factory):
     p = ctypes.c_void_p
     fn = lib.k1_vm_host
     fn.argtypes = [ctypes.POINTER(p), ctypes.POINTER(ctypes.c_longlong),
-                   ctypes.c_longlong] + [p] * 6 + [ctypes.c_int, p, p, p, p,
-                                                   ctypes.c_int, ctypes.c_int,
-                                                   ctypes.c_int]
+                   ctypes.c_longlong] + [p] * 6 + [ctypes.c_int] * 2 + \
+        [p] * 4 + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
     fn.restype = ctypes.c_int
+    fold = lib.k1_vm_fold_host
+    fold.argtypes = [p, p, p, ctypes.c_int, p, p, p]
+    fold.restype = None
+    fn.fold = fold
     return fn
 
 
-def run_host(fn, program, packed):
+def run_host(fn, program, packed, executed=None):
     """The host build of K1v over ``packed`` (numpy or CPU tensors):
     (s_u, d_u, fdet_u, adm) as CPU tensors, the columns of eager-routed
-    trees zero (as the kernel's wrapper leaves them)."""
+    trees zero (as the kernel's wrapper leaves them).  ``executed``, a
+    one-element list, receives the instructions interpreted."""
     bufs = {k: np.ascontiguousarray(v.numpy() if torch.is_tensor(v) else v)
             for k, v in packed.items()}
     rows = next(iter(bufs.values())).shape[0]
@@ -72,13 +76,17 @@ def run_host(fn, program, packed):
     fd = np.zeros((rows, program.n_cols_u), np.int32)
     adm = np.full((rows, program.n_adm), -1, np.int8)
     tabs = [np.ascontiguousarray(getattr(program, n))
-            for n in ('code', 'lanes', 'i64', 'f64', 'bytes', 'trees')]
+            for n in ('code', 'lanes', 'i64', 'f64', 'bytes', 'warps')]
+    count = ctypes.c_longlong(0)
     rc = fn((ctypes.c_void_p * 5)(*ptrs), (ctypes.c_longlong * 5)(*widths),
-            rows, *[t.ctypes.data for t in tabs], program.trees.shape[0],
-            s.ctypes.data, d.ctypes.data, fd.ctypes.data,
-            adm.ctypes.data if program.n_adm else None, program.n_uniq,
-            program.n_cols_u, program.n_adm)
+            rows, *[t.ctypes.data for t in tabs], program.n_groups,
+            program.group_warps, s.ctypes.data, d.ctypes.data,
+            fd.ctypes.data, adm.ctypes.data if program.n_adm else None,
+            program.n_uniq, program.n_cols_u, program.n_adm,
+            ctypes.byref(count))
     assert rc == 0
+    if executed is not None:
+        executed.append(count.value)
     return (torch.from_numpy(s), torch.from_numpy(d), torch.from_numpy(fd),
             torch.from_numpy(adm))
 

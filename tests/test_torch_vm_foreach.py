@@ -327,7 +327,14 @@ def test_pack_compiles_fully_onto_k1v(name):
     assert program.n_adm == tev.n_adm
     ops = [vm.OPS[c] for c in program.code[:, 0]]
     assert ops.count('AEND') == tev.n_adm
-    assert ops.count('END') == tev.n_uniq
+    # a status tree ends in one PEND per part, and one warp folds its
+    # parts into its column
+    assert sorted(program.tree_parts) == list(range(tev.n_uniq))
+    assert ops.count('PEND') == sum(program.tree_parts.values())
+    heads = program.warps[program.warps[:, 1] > 0]
+    assert sorted(heads[:, 2].tolist()) == list(range(tev.n_uniq))
+    assert heads[:, 1].tolist() == [program.tree_parts[c]
+                                    for c in heads[:, 2].tolist()]
     if name != 'admission_lanes':
         assert ops.count('SFEBEGIN') >= 1
 
