@@ -18,11 +18,13 @@ CUDA card and checks it, in phases that each print one line:
    (K1c's DP runs inside K1v on the main path, so K1c launches only
    there).  ``k1_chunk`` reports per K1 call the aten ops
    (torch.profiler, split K1v / K1h / K1i / glue by the evaluator's
-   labels), the host dispatch and the device span, against the eager
-   walk's, and each program's route.  ``kernels``: K1v, K1h and K1c
-   against their plain versions on the card at the main path's shapes —
-   the chunk's real tensors plus seeded random ones.  Outputs must be
-   exactly equal.  Times come from CUDA events.  K1v's record adds its
+   labels; the glue must be 0: K1h takes the whole tail of the call),
+   the host dispatch and the device span, against the eager walk's, and
+   each program's route.  ``kernels``: K1v, K1h and K1c against their
+   plain versions on the card at the main path's shapes — the chunk's
+   real tensors plus seeded random ones (K1h's with the match and
+   row-validity lanes inside wider buffers).  Outputs must be exactly
+   equal.  Times come from CUDA events.  K1v's record adds its
    launch plan (parts per tree, groups, blocks, warps per block, shared
    memory per block, groups staged in shared memory or reading device
    memory), ptxas' numbers, the instructions it executed per row (its
@@ -60,9 +62,11 @@ CUDA card and checks it, in phases that each print one line:
    leads; K4h must launch in each.  A child that fails, outlives its
    timeout or prints no result fails the run.
 5. ``k3``: the mutate kernel (K3) against its plain version on the card,
-   on the lanes of one full chunk of the mutate pack, a seeded random
-   case (8 rules of 32 sites, a 256-byte window, 10 % padding rows) and
-   a program with no sites.  Outputs must be exactly equal.
+   on the staged lanes of one full chunk of the mutate pack, seeded
+   random cases (8 rules of 32 sites, a 256-byte and an 8-byte window,
+   10 % padding rows) and a program with no sites.  Outputs must be
+   exactly equal, and the wrapper must refuse a card ``rule_start``
+   without its host bounds.
 6. ``mutate``: ``MutateScanner.scan`` over one full chunk (16,384 Pods)
    of the mutate pack: rows/s, the FALLBACK rows, K3's launches; 256
    sampled rows are held against the host engine's mutate chain.
@@ -79,10 +83,16 @@ CUDA card and checks it, in phases that each print one line:
    walk (bit-equal out8/out32; ``k1_admission`` reports the aten ops and
    dispatch per call), and each kernel is held against its plain version
    on the exact card tensors that review gave it (K1v, K1h and K1c at the
-   64-row admission capacity, K3 at the /mutate lanes); one more sync
-   /validate/fail review runs under torch.profiler, whose kernel events
-   ``k1_admission`` prints beside the launches the wrappers counted
-   (``profiler_k1v``).  Because the
+   64-row admission capacity, K3 at the /mutate lanes).  One K1 call,
+   and one call of the mutate kernel up to its readback, run under
+   ``torch.cuda.set_sync_debug_mode('error')``: a wrapper that waits
+   for the card fails the run, as do aten ops of glue in the K1 call.
+   ``k1_admission`` prints the copies each way of one K1 call with its
+   readback and of one sync request per route (a dispatch mode counts
+   them), and torch.profiler's kernel events beside the launches the
+   wrappers counted for a wrapper call, an evaluator call (also on a
+   second thread) and sync /validate/fail requests (``profiler_k1v``).
+   Because the
    handler serves a failed device path from the host engine with the
    same bytes, the phase also counts the serving path of each validate
    decision (decision provenance), the rows the mutate scanner
@@ -334,6 +344,10 @@ def first_chunk_inputs(scanner, pods, device, adm_rows=None):
                    HBM_BYTES_PER_S * 1e3,
                    'k2_bound_ms': packed_bytes / PCIE_BYTES_PER_S * 1e3}
     seen['status_vm'] = vm_calls
+    glue = chunk_stats['aten_ops']['by_part']['glue']
+    if glue:
+        raise AssertionError(f'{glue} aten ops of glue per K1 call on the '
+                             f'first chunk (must be 0)')
     return seen, chunk_stats
 
 
@@ -343,6 +357,8 @@ def _clone(a):
         return a.clone()
     if isinstance(a, dict):
         return {k: _clone(v) for k, v in a.items()}
+    if isinstance(a, tuple) and not hasattr(a, '_fields'):
+        return tuple(_clone(x) for x in a)
     return a
 
 
@@ -393,14 +409,15 @@ def k1v_check(fn, names=('fdet_select', 'wildcard_match')):
     walk.  Returns the outputs' largest difference, the K1v call's
     ``status_vm`` arguments and the eager run's kernel inputs (K1c and
     K1h, whose launches in that run are counted and returned too)."""
+    import torch
     from kyverno_tpu_torch.ops import kernels
     got, vm_calls = capture_kernel_inputs(fn, names=('status_vm',))
     before = dict(kernels.LAUNCHES)
     with eager_walk():
         want, seen = capture_kernel_inputs(fn, names=names)
     launched = {k: kernels.LAUNCHES[k] - before[k] for k in CAPTURE_KERNELS}
-    got = tuple(got) if isinstance(got, (tuple, list)) else (got,)
-    want = tuple(want) if isinstance(want, (tuple, list)) else (want,)
+    got = (got,) if isinstance(got, torch.Tensor) else tuple(got)
+    want = (want,) if isinstance(want, torch.Tensor) else tuple(want)
     return _max_abs_err(got, want), vm_calls['status_vm'], seen, launched
 
 
@@ -567,13 +584,16 @@ def _device_busy_ms(fn, device, kernel: str = '', reps: int = 1):
     return total_us / 1e3 / (launches if kernel else reps)
 
 
-def profiler_launches(fn, device) -> dict:
+def profiler_launches(fn, device, others: bool = False) -> dict:
     """One call of ``fn`` (a sync request) under torch.profiler: the
     launches of each hand-written kernel its wrapper counted, beside the
     kernel events the profiler recorded under the kernel's symbol
     (``observability/profiling.py kernel_event_counts``, which
-    ``deep_profile`` reports when they differ)."""
+    ``deep_profile`` reports when they differ); with ``others``, also
+    the device events of everything else (torch's own kernels and
+    copies) under ``'others'``."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from kyverno_tpu_torch.observability.profiling import \
         kernel_event_counts
@@ -584,8 +604,129 @@ def profiler_launches(fn, device) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return kernel_event_counts(prof.key_averages(), before,
-                               dict(kernels.LAUNCHES))
+    events = prof.key_averages()
+    out = kernel_event_counts(events, before, dict(kernels.LAUNCHES))
+    if others:
+        out['others'] = sum(
+            e.count for e in events if e.device_type == DeviceType.CUDA and
+            not getattr(e, 'is_user_annotation', False) and
+            not any(sym in e.key for sym in kernels.KERNEL_SYMBOLS.values()))
+    return out
+
+
+def profiler_probe(vev, packed, program, server, body, device,
+                   sessions: int = 2) -> dict:
+    """Where torch.profiler sees the hand-written kernels' launches and
+    where it does not: ``sessions`` sessions each (``profiler_launches``)
+    of one K1v wrapper call, one evaluator call (K1v and K1h), one sync
+    /validate/fail request, the last two also with 50 ms of idle time
+    before the call or after its ``synchronize``, inside the session;
+    and one session each of the evaluator call on a second thread and
+    of a request right after a session that records the CPU alone (as
+    ``aten_ops``'s).  Each evaluator call is followed by one torch
+    kernel (an in-place add), so every session has a device event of
+    torch's own beside the hand-written ones.  Per variant: the
+    sessions, the launches the wrappers counted, the kernel events the
+    profiler recorded for them, the sessions in which it recorded none
+    of them, and its device events of everything else (torch's kernels
+    and copies) in those sessions and in the others."""
+    import threading
+    import torch
+    from kyverno_tpu_torch.ops import kernels
+    layout = program.layout
+
+    def on_thread(fn):
+        th = threading.Thread(target=fn)
+        th.start()
+        th.join()
+
+    def padded(fn, before: float, after: float):
+        def call():
+            time.sleep(before)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(after)
+        return call
+
+    def tally(fn, n: int) -> dict:
+        out = {'sessions': n, 'launches': 0, 'events': 0, 'blind': 0,
+               'others_when_blind': 0, 'others_when_seen': 0}
+        for _ in range(n):
+            recs = profiler_launches(fn, device, others=True)
+            others = recs.pop('others')
+            seen = sum(r['profiler_events'] for r in recs.values())
+            out['launches'] += sum(r['launches'] for r in recs.values())
+            out['events'] += seen
+            out['blind'] += not seen
+            out['others_when_blind' if not seen else
+                'others_when_seen'] += others
+        return out
+
+    marker = torch.zeros(1, device=device)
+
+    def call():
+        out = vev(packed, layout)
+        marker.add_(1)
+        return out
+
+    def request():
+        return server.handle('/validate/fail', body)
+
+    out = {'k1v_wrapper': tally(
+        lambda: (kernels.status_vm(packed, program), marker.add_(1)),
+        sessions)}
+    for name, fn in (('k1_call', call), ('request', request)):
+        out[name] = tally(fn, sessions)
+        out[f'{name}_idle_before'] = tally(padded(fn, 0.05, 0.0), sessions)
+        out[f'{name}_idle_after'] = tally(padded(fn, 0.0, 0.05), sessions)
+    out['k1_call_other_thread'] = tally(lambda: on_thread(call), 1)
+    aten_ops(call, device)
+    out['request_after_cpu_only_session'] = tally(request, 1)
+    return out
+
+
+def sync_error(fn):
+    """None when ``fn()`` runs under ``torch.cuda.set_sync_debug_mode(
+    'error')`` without an operation that waits for the card, else that
+    operation's error."""
+    import torch
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        fn()
+    except RuntimeError as e:
+        return str(e)[:500]
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    return None
+
+
+def copies(fn) -> dict:
+    """Host-to-device and device-to-host copies one call of ``fn``
+    dispatches on this thread (aten ``_to_copy`` and ``copy_`` between
+    the CPU and the card, seen by a dispatch mode)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    to_copy = torch.ops.aten._to_copy.default
+    copy_ = torch.ops.aten.copy_.default
+    n = {'h2d': 0, 'd2h': 0}
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func is to_copy or func is copy_:
+                src, dst = (args[0], out) if func is to_copy else \
+                    (args[1], args[0])
+                kinds = (src.device.type, dst.device.type)
+                if kinds == ('cpu', 'cuda'):
+                    n['h2d'] += 1
+                elif kinds == ('cuda', 'cpu'):
+                    n['d2h'] += 1
+            return out
+
+    with Count():
+        fn()
+    return n
 
 
 def request_kernel_ms(fn, reps: int = 5,
@@ -652,16 +793,35 @@ def _plan_lookup_us(ev, layout, reps: int = 1000) -> float:
     return (time.perf_counter() - t0) / reps * 1e6
 
 
-def _random_k1h(rel, seed):
+def _random_k1h(call, seed):
+    """Seeded K1h inputs at a captured call's shapes and column map:
+    statuses 30 % and 90 % FAIL, random details, admission columns and
+    fail details, the match lane (nine in ten set) inside a wider byte
+    buffer at column 3, and a row-validity lane (one row in eight off)
+    at column 1 of another."""
     import torch
+    s_u, _d, adm, fdet_u, _m, _rv, src, k = call
+    dev = s_u.device
     g = torch.Generator().manual_seed(seed)
-    r, c = rel.shape
+    r, u = s_u.shape
     out = []
     for density in (0.3, 0.9):
-        rr = torch.rand(r, c, generator=g) < density
-        fd = torch.randint(-3, 1 << 24, (r, c), generator=g,
+        fail = torch.rand(r, u, generator=g) < density
+        s = torch.where(fail, 1, torch.randint(0, 6, (r, u), generator=g)
+                        ).to(torch.int8)
+        d = torch.randint(-2, 100, (r, u), generator=g, dtype=torch.int8)
+        a = torch.randint(0, 2, tuple(adm.shape), generator=g,
+                          dtype=torch.int8)
+        fd = torch.randint(-3, 1 << 24, tuple(fdet_u.shape), generator=g,
                            dtype=torch.int32)
-        out.append((rr, fd))
+        mbuf = torch.randint(0, 256, (r, u + 9), generator=g,
+                             dtype=torch.uint8)
+        mbuf[:, 3:3 + u] = (torch.rand(r, u, generator=g) < 0.9).to(
+            torch.uint8)
+        rbuf = torch.randint(-3, 3, (r, 4), generator=g, dtype=torch.int8)
+        rbuf[:, 1] = (torch.rand(r, generator=g) < 0.875).to(torch.int8)
+        out.append((s.to(dev), d.to(dev), a.to(dev), fd.to(dev),
+                    (mbuf.to(dev), 3), (rbuf.to(dev), 1), src, k))
     return out
 
 
@@ -683,15 +843,22 @@ def _random_k1c(shape, w, seed):
             torch.from_numpy(tag.reshape(shape)))
 
 
-def _k1h_bound(rel, k: int):
-    """(ms, 'bytes') of K1h: ``rel`` read once, the fdet of each taken
-    column (and of the fill column of a short row), the output."""
+def _k1h_bound(call):
+    """(ms, 'bytes') of K1h: s_u, d_u and adm read once, the match bytes
+    and the row-validity byte of each row, the column map, the fail
+    detail of each taken column (and of the fill column of a short
+    row), and the output rows written once."""
     import torch
-    r_n, c_n = rel.shape
-    counts = rel.sum(dim=1)
+    from kyverno_tpu_torch.ops import kernels
+    s_u, _d, adm, _fd, match, rowvalid, src, k = call
+    r_n, u = s_u.shape
+    n8 = 2 * u + adm.shape[1]
+    counts = kernels._fdet_rel(s_u, match, rowvalid, src).sum(dim=1)
     taken = torch.clamp(counts, max=k)
     fill = (counts < k).to(torch.int64)
-    nbytes = r_n * c_n + int((taken + fill).sum()) * 4 + r_n * 2 * k * 4
+    nbytes = (r_n * n8 + r_n * u + (r_n if rowvalid is not None else 0) +
+              src.numel() * 4 + int((taken + fill).sum()) * 4 +
+              r_n * kernels.fdet_row_bytes(n8, k)[0])
     return nbytes / HBM_BYTES_PER_S * 1e3, 'bytes'
 
 
@@ -708,30 +875,34 @@ def _k1c_bound(str_len, w: int, pattern: bytes):
 
 
 def measure_k1h(calls, device, extra=()):
-    """K1h on each captured call, and on ``extra`` (rel, fdet_u) cases
-    at the first call's k, against its plain version; the time, bound
-    and library time are those of the first call."""
+    """K1h on each captured call and on ``extra`` calls against its
+    plain version; the time, bound and library time are those of the
+    first call."""
     from kyverno_tpu_torch.ops import kernels
     if not calls:
         raise AssertionError('K1h was never called')
-    rel, fdet_u, k = calls[0]
-    cases = list(calls) + [(r_, f_, k) for r_, f_ in extra]
+    call = calls[0]
+    cases = list(calls) + list(extra)
     err = max(_max_abs_err(kernels.fdet_select(*c),
                            kernels.fdet_select_plain(*c)) for c in cases)
-    bound_ms, bound_by = _k1h_bound(rel, k)
+    bound_ms, bound_by = _k1h_bound(call)
+    s_u, _d, adm, fdet_u, match, rowvalid, src, k = call
     return {
         'max_abs_err': err,
-        'ms': _ms(lambda: kernels.fdet_select(rel, fdet_u, k), device),
-        'plain_ms': _ms(lambda: kernels.fdet_select_plain(rel, fdet_u, k),
-                        device),
+        'ms': _ms(lambda: kernels.fdet_select(*call), device),
+        'plain_ms': _ms(lambda: kernels.fdet_select_plain(*call), device),
         'bound_ms': bound_ms, 'bound_by': bound_by,
-        'library_ms': _ms(lambda: kernels.fdet_select_library(
-            rel, fdet_u, k), device),
+        'library_ms': _ms(lambda: kernels.fdet_select_library(*call),
+                          device),
         'kernel_device_ms': _device_busy_ms(
-            lambda: kernels.fdet_select(rel, fdet_u, k), device,
+            lambda: kernels.fdet_select(*call), device,
             'fdet_select_kernel', reps=20),
-        'shape': {'rows': rel.shape[0], 'cols': rel.shape[1], 'k': k,
-                  'relevant_cells': int(rel.sum())},
+        'shape': {'rows': s_u.shape[0], 'uniq': s_u.shape[1],
+                  'adm_cols': adm.shape[1], 'cols': fdet_u.shape[1],
+                  'k': k, 'rowvalid': rowvalid is not None,
+                  'match_row_stride': match[0].stride(0),
+                  'relevant_cells': int(kernels._fdet_rel(
+                      s_u, match, rowvalid, src).sum())},
         'calls': len(calls), 'cases': len(cases)}
 
 
@@ -772,10 +943,8 @@ def kernel_phase(seen, device, seed):
     them), plus seeded random cases of that shape; returns the
     per-kernel records (launch counts are filled in later)."""
     k1v = measure_k1v(seen['status_vm'], device)
-    rel = seen['fdet_select'][0][0] if seen['fdet_select'] else None
-    k1h = measure_k1h(seen['fdet_select'], device, extra=[
-        (r.to(device), f.to(device)) for r, f in _random_k1h(rel, seed)]
-        if rel is not None else ())
+    k1h = measure_k1h(seen['fdet_select'], device, extra=_random_k1h(
+        seen['fdet_select'][0], seed) if seen['fdet_select'] else ())
     k1c_calls = seen['wildcard_match']
     extra = []
     if k1c_calls:
@@ -796,7 +965,7 @@ def kernel_phase(seen, device, seed):
              replaces='kyverno_tpu/ops/eval.py:1764', launches=0),
         dict(k1h, name='k1h_fdet_select', route='cuda',
              source='kyverno_tpu_torch/csrc/k1h_fdet_select.cu',
-             replaces='kyverno_tpu/ops/eval.py:1797', launches=0),
+             replaces='kyverno_tpu/ops/eval.py:1789', launches=0),
         dict(k1c, name='k1c_wildcard', route='cuda',
              source='kyverno_tpu_torch/csrc/k1c_wildcard.cu',
              replaces='kyverno_tpu/ops/eval.py:275', launches=0)]
@@ -1320,6 +1489,8 @@ class MutateCounter:
         self.dispatches = 0
         self.fallback_rows = 0
         scan, kernel = scanner.scan, scanner._kernel
+        #: the scanner's ``MutateKernel`` and the lanes of its last call
+        self.kernel, self.last_lanes = kernel, None
 
         def counting_scan(resources, *args, **kwargs):
             self.dispatches += 1
@@ -1327,6 +1498,7 @@ class MutateCounter:
             return scan(resources, *args, **kwargs)
 
         def counting_kernel(lanes):
+            self.last_lanes = lanes
             out = kernel(lanes)
             live = lanes['valid']
             self.fallback_rows += int(
@@ -1352,9 +1524,11 @@ def _random_k3(rows: int, seed: int, device, n_rules: int = 8,
     values at the edges of the milli window, byte noise in the string
     windows, every tag and intermediate state, 10 % padding rows.  The
     fault rates leave about half the rules free of FALLBACK, so SKIP,
-    PASS and FALLBACK all occur."""
+    PASS and FALLBACK all occur.  Returns the staged lanes, the site
+    tables and the host bounds, as ``MutateKernel`` passes them."""
     import numpy as np
     import torch
+    from kyverno_tpu_torch.ops import kernels
     rng = np.random.default_rng(seed)
     s = n_rules * per_rule
     imax = np.iinfo(np.int64).max
@@ -1366,11 +1540,12 @@ def _random_k3(rows: int, seed: int, device, n_rules: int = 8,
     t_bytes = rng.integers(1, 256, (s, w)).astype(np.uint8)
     t_bytes[np.arange(w)[None, :] >= np.minimum(t_len, w)[:, None]] = 0
     t_bytes[is_num] = 0
+    bounds = tuple(range(0, s + 1, per_rule))
     sites = {'t_is_num': is_num, 't_milli': t_milli, 't_len': t_len,
              't_bytes': t_bytes, 'add_only': rng.random(s) < 0.3,
              'replace': rng.random(s) < 0.03,
-             'rule_start': (np.arange(n_rules + 1) * per_rule
-                            ).astype(np.int32)}
+             'site_slot': kernels.k3_site_slot(bounds),
+             'rule_start': np.asarray(bounds, np.int32)}
     tag = rng.choice(np.array([0, 1, 2, 3, 4, 5, 6, 7, 5, 3], np.int8),
                      (rows, s))
     istate = rng.choice(np.array([0] * 97 + [1, 1, 2], np.int8), (rows, s))
@@ -1387,11 +1562,13 @@ def _random_k3(rows: int, seed: int, device, n_rules: int = 8,
              'milli_ok': rng.random((rows, s)) < 0.97, 'slen': slen,
              'sbytes': sbytes,
              'valid': np.arange(rows) < rows - rows // 10}
-    return ({k: torch.from_numpy(v).to(device) for k, v in lanes.items()},
-            {k: torch.from_numpy(v).to(device) for k, v in sites.items()})
+    buf, layout = kernels.k3_pack(lanes)
+    return ((buf.to(device), layout),
+            {k: torch.from_numpy(v).to(device) for k, v in sites.items()},
+            bounds)
 
 
-def _k3_bytes(lanes, sites) -> dict:
+def _k3_bytes(lanes, sites, bounds) -> dict:
     """K3's bytes.  ``full_pass``: every lane read once, R*S*(15 + w) +
     R, plus R*NR*10 written (status i8, edits i64, reason i8).
     ``needed``: what this run's data needs — tag and istate of every
@@ -1400,10 +1577,12 @@ def _k3_bytes(lanes, sites) -> dict:
     window of those whose length matches, ``valid``, and the outputs."""
     from kyverno_tpu_torch.compiler.ir import (TAG_BOOL, TAG_FLOAT, TAG_INT,
                                                TAG_MISSING, TAG_STRING)
+    from kyverno_tpu_torch.ops import kernels
+    lanes = kernels.k3_unpack(*lanes)
     tag, istate = lanes['tag'], lanes['istate']
     r, s = tag.shape
     w = lanes['sbytes'].shape[2]
-    nr = sites['rule_start'].numel() - 1
+    nr = len(bounds) - 1
     out = r * nr * 10
     present = (tag != TAG_MISSING) & (istate != 2)
     is_num = sites['t_is_num']
@@ -1415,30 +1594,31 @@ def _k3_bytes(lanes, sites) -> dict:
     return {'full_pass': r * s * (15 + w) + r + out, 'needed': needed}
 
 
-def measure_k3(lanes, sites, device) -> dict:
-    """K3 on one call's lanes and site tables against its plain
-    version: the error, the times, the bound of what the data needs and
-    that of a full pass."""
+def measure_k3(lanes, sites, bounds, device) -> dict:
+    """K3 on one call's staged lanes, site tables and host bounds
+    against its plain version: the error, the times, the bound of what
+    the data needs and that of a full pass."""
     import torch
     from kyverno_tpu_torch.ops import kernels
-    got = kernels.k3_mutate(lanes, sites)
-    err = _max_abs_err(got, kernels.k3_mutate_plain(lanes, sites))
-    r, s = lanes['tag'].shape
-    nbytes = _k3_bytes(lanes, sites)
+    got = kernels.k3_mutate(lanes, sites, bounds)
+    err = _max_abs_err(got, kernels.k3_mutate_plain(lanes, sites, bounds))
+    layout = lanes[1]
+    r, s, nr = layout.rows, layout.sites, len(bounds) - 1
+    status, edits, _reason = kernels.k3_outputs(got, r, nr)
+    nbytes = _k3_bytes(lanes, sites, bounds)
     return {
-        'shape': {'rows': r, 'sites': s,
-                  'rules': sites['rule_start'].numel() - 1,
-                  'window': lanes['sbytes'].shape[2]},
+        'shape': {'rows': r, 'sites': s, 'rules': nr,
+                  'window': layout.width, 'staged_bytes': layout.nbytes},
         'max_abs_err': err,
         'status_counts': torch.bincount(
-            got[0].flatten().long(), minlength=3).tolist(),
-        'bit31_rows': int(((got[1] >> 31) & 1).any(dim=1).sum()),
-        'ms': _ms(lambda: kernels.k3_mutate(lanes, sites), device),
+            status.flatten().long(), minlength=3).tolist(),
+        'bit31_rows': int(((edits >> 31) & 1).any(dim=1).sum()),
+        'ms': _ms(lambda: kernels.k3_mutate(lanes, sites, bounds), device),
         'kernel_device_ms': _device_busy_ms(
-            lambda: kernels.k3_mutate(lanes, sites), device,
+            lambda: kernels.k3_mutate(lanes, sites, bounds), device,
             'mutate_kernel', reps=20),
-        'plain_ms': _ms(lambda: kernels.k3_mutate_plain(lanes, sites),
-                        device),
+        'plain_ms': _ms(lambda: kernels.k3_mutate_plain(lanes, sites,
+                                                        bounds), device),
         'bytes': nbytes,
         'bound_ms': nbytes['needed'] / HBM_BYTES_PER_S * 1e3,
         'full_pass_bound_ms': nbytes['full_pass'] / HBM_BYTES_PER_S * 1e3,
@@ -1447,10 +1627,12 @@ def measure_k3(lanes, sites, device) -> dict:
 
 def k3_phase(scanner, pods, device, seed):
     """K3 against its plain version on the card: the lanes of one full
-    chunk of the mutate pack, a seeded random case and no sites."""
+    chunk of the mutate pack, seeded random cases (8 rules of 32 sites
+    at w = 256 and at w = 8) and no sites."""
     import torch
     from kyverno_tpu_torch.compiler.shapes import canonical_capacity
     from kyverno_tpu_torch.mutate.encode import encode_mutate_batch
+    from kyverno_tpu_torch.ops import kernels
     kern = scanner._kernel
     real = encode_mutate_batch(pods, scanner.program,
                                padded_n=canonical_capacity(len(pods)),
@@ -1459,8 +1641,10 @@ def k3_phase(scanner, pods, device, seed):
     empty_lanes = {k: v[:, :0] if v.ndim > 1 else v
                    for k, v in real.items()}
     cases = {
-        'mutate_chunk': (kern.stage(real), kern.site_tensors()),
+        'mutate_chunk': (kern.stage(real), kern.site_tensors(),
+                         kern.bounds),
         'random_8x32_w256': _random_k3(r0, seed, device),
+        'random_8x32_w8': _random_k3(r0, seed + 1, device, w=8),
         'no_sites': (kern.stage(empty_lanes), {
             't_is_num': torch.zeros(0, dtype=torch.bool, device=device),
             't_milli': torch.zeros(0, dtype=torch.int64, device=device),
@@ -1469,15 +1653,27 @@ def k3_phase(scanner, pods, device, seed):
                                    device=device),
             'add_only': torch.zeros(0, dtype=torch.bool, device=device),
             'replace': torch.zeros(0, dtype=torch.bool, device=device),
+            'site_slot': torch.zeros(0, dtype=torch.int32, device=device),
             'rule_start': torch.zeros(kern.n_rules + 1, dtype=torch.int32,
-                                      device=device)}),
+                                      device=device)},
+            (0,) * (kern.n_rules + 1)),
     }
     out = {}
-    for name, (lanes, sites) in cases.items():
-        out[name] = measure_k3(lanes, sites, device)
+    for name, (lanes, sites, bounds) in cases.items():
+        out[name] = measure_k3(lanes, sites, bounds, device)
         if out[name]['max_abs_err']:
             raise AssertionError(f'K3 differs from its plain version on '
                                  f'{name}: {out[name]["max_abs_err"]}')
+    # the wrapper never reads rule_start back: it refuses a card table
+    # without the host bounds
+    try:
+        kernels.k3_mutate(cases['mutate_chunk'][0], kern.site_tensors())
+    except ValueError:
+        pass
+    else:
+        if device.type == 'cuda':
+            raise AssertionError('k3_mutate took a card rule_start '
+                                 'without its host bounds')
     main = out['mutate_chunk']
     record = {
         'name': 'k3_mutate', 'route': 'cuda',
@@ -1616,14 +1812,21 @@ def _latency(lat) -> dict:
     return out
 
 
-def admission_kernels(server, oracle, reviews, vev, device) -> dict:
+def admission_kernels(server, oracle, reviews, vev, device,
+                      mutate=None) -> dict:
     """Each kernel at the admission path's own shapes.  One sync review
     of each route is served with the kernel wrappers spied on; every
     call's card tensors are held against the plain version, and the
     first call of each kernel is timed and bounded.  K1v's call is
     repeated through the validate evaluator ``vev`` with the eager walk
     in its place: out8 and out32 must be bit-equal, and that run gives
-    K1c its inputs.  These launches come before the counted passes."""
+    K1c its inputs.  Then one K1 call and one call of the mutate
+    kernel (``mutate``, the live scanner's ``MutateCounter``) up to its
+    readback run under the sync debug mode, and must not wait for the
+    card; the K1 call's aten ops of glue must be 0; and the copies each
+    way of one K1 call and of one sync request per route are counted.
+    These launches come before the counted passes."""
+    from kyverno_tpu_torch.ops import kernels
     seen = {'fdet_select': [], 'status_vm': [], 'k3_mutate': []}
     routes = sorted({r for r, _b in reviews})
     for route in routes:
@@ -1648,11 +1851,12 @@ def admission_kernels(server, oracle, reviews, vev, device) -> dict:
     if not eager_seen['wildcard_match'] or launched['k1c_wildcard'] <= 0:
         raise AssertionError('K1c never launched in the eager walk')
     out = {'k1_vm': measure_k1v(seen['status_vm'], device),
-           'k1h_fdet_select': measure_k1h(seen['fdet_select'], device),
+           'k1h_fdet_select': measure_k1h(
+               seen['fdet_select'], device,
+               extra=_random_k1h(seen['fdet_select'][0], len(reviews))),
            'k1c_wildcard': measure_k1c(eager_seen['wildcard_match'], device)}
     if seen['k3_mutate']:
-        k3 = [measure_k3(lanes, sites, device)
-              for lanes, sites in seen['k3_mutate']]
+        k3 = [measure_k3(*c, device) for c in seen['k3_mutate']]
         out['k3_mutate'] = dict(k3[0], calls=len(k3), max_abs_err=max(
             c['max_abs_err'] for c in k3))
     bad = {n: r['max_abs_err'] for n, r in out.items() if r['max_abs_err']}
@@ -1666,17 +1870,39 @@ def admission_kernels(server, oracle, reviews, vev, device) -> dict:
         eager_ms = (time.perf_counter() - t0) * 1e3
         eager_aten = aten_ops(lambda: vev(packed, layout), device)
     body = next(b for r, b in reviews if r == '/validate/fail')
+    # neither wrapper waits for the card: one K1 call, and one
+    # MutateKernel call up to its readback, under the sync debug mode
+    sync = {'k1_call': sync_error(lambda: vev(packed, layout))}
+    if mutate is not None and mutate.last_lanes is not None:
+        kern, lanes = mutate.kernel, mutate.last_lanes
+        sync['mutate_kernel_call'] = sync_error(lambda: kernels.k3_mutate(
+            kern.stage(lanes), kern.site_tensors(), kern.bounds))
     out['k1_call'] = {
-        'profiler_k1v': profiler_launches(
-            lambda: server.handle('/validate/fail', body), device),
+        'profiler_k1v': profiler_probe(vev, packed, program, server, body,
+                                       device),
         'rows': next(iter(packed.values())).shape[0],
         'k1v_check': {'max_abs_err': err, 'capture_launches': launched},
         'host_dispatch_ms': host_ms,
         'plan_lookup_us': _plan_lookup_us(vev, layout),
         'aten_ops': aten_ops(lambda: vev(packed, layout), device),
+        'copies': {'k1_call_and_readback': copies(
+            lambda: vev(packed, layout).host())},
+        'sync_debug': sync,
         'eager_walk': {'host_dispatch_ms': eager_ms,
                        'aten_ops': eager_aten},
         'routes': {str(j): list(r) for j, r in vev.routes.items()}}
+    for route in routes:
+        body = next(b for r, b in reviews if r == route)
+        out['k1_call']['copies'][route] = copies(
+            lambda: server.handle(route, body))
+    synced = {k: v for k, v in sync.items() if v is not None}
+    if synced:
+        raise AssertionError(f'kernel wrappers synchronized with the '
+                             f'card: {synced}')
+    glue = out['k1_call']['aten_ops']['by_part']['glue']
+    if glue:
+        raise AssertionError(f'{glue} aten ops of glue per K1 call at the '
+                             f'admission shape (must be 0)')
     return out
 
 
@@ -1816,7 +2042,7 @@ def admission_phase(seed: int, restricted: bool = False) -> dict:
         else:
             sync = _reviews(2 * SYNC_REVIEWS, seed, 0)
         report['kernels_at_admission'] = admission_kernels(
-            server, oracle, sync, vev, handlers.torch_device)
+            server, oracle, sync, vev, handlers.torch_device, counter)
         report['sync'] = run_pass('sync', sync, 1, range(len(sync)))
         # the card's share of one sync request: the device time of the
         # kernels it launched (CUDA events around each wrapper call)

@@ -357,8 +357,13 @@ class BatchScanner:
                         self._adm, cap))
             t, layout = shard_batch(tensors, self.device, mesh=self.mesh)
             out = self._evaluator(t, layout)
-            for arr in out:
-                arr.cpu()  # waits for the device work
+            # the readback waits for the device work: one copy on the
+            # compact path, one per matrix on the mesh's
+            if len(out) == 2:
+                out.host()
+            else:
+                for arr in out:
+                    arr.cpu()
             self._free_inputs(t, out)
             return time.monotonic() - t0
 
@@ -743,13 +748,13 @@ class BatchScanner:
             faults.check(faults.SITE_D2H)
             start, ln, t, out = p['start'], p['ln'], p['t'], p['out']
             if len(out) == 2:
-                # .cpu() waits for the chunk's device work on its
-                # stream; on the CPU it is the evaluator's own output
+                # one copy of K1h's allocation, split on the host; it
+                # waits for the chunk's device work on its stream (on
+                # the CPU it is the evaluator's own output)
                 with devtel.d2h_guard({'chunk_start': start,
                                        'rows': ln}) as g:
-                    o8 = out[0].cpu().numpy()
-                    o32 = out[1].cpu().numpy()
-                    g.add_d2h_bytes(o8.nbytes + o32.nbytes)
+                    o8, o32 = out.host()
+                    g.add_d2h_bytes(out.rows.numel())
                 s, d, fd, adm = expand_compact(o8, o32,
                                                self._evaluator)
                 self._free_inputs(t, out)

@@ -22,13 +22,16 @@ outputs:
                        encoded lanes
 
 Sites are enumerated rule by rule, so each rule owns a contiguous site
-range (``_rule_start``, CSR offsets) and the kernel runs one warp per
-(resource, rule).  Rows past the live row count (the ``valid`` lane)
-are capacity padding: their statuses, edit bitmasks, and reasons are
-forced to SKIP/0 inside the kernel so no cross-row consumer can ever
-observe them.  The site tables are device tensors built once per
-kernel object; the lanes are staged through pinned host memory with
-``non_blocking`` copies, as the evaluator's batches are.
+range (``_rule_start``, CSR offsets; checked when the tables are built:
+at most 32 sites a rule, one bit each of its mask) and the kernel runs
+one thread per (resource, site) cell.  Rows past the live row count
+(the ``valid`` lane) are capacity padding: their statuses, edit
+bitmasks, and reasons are forced to SKIP/0 inside the kernel so no
+cross-row consumer can ever observe them.  The site tables are device
+tensors built once per kernel object; a call writes its lanes into one
+pinned host buffer, copies it to the card with one ``non_blocking``
+copy, and reads the one output buffer back with one copy.  Nothing
+else in a call waits for the card.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops import kernels
 from .encode import exact_milli, string_window
 from .plan import MutateSetProgram
 
@@ -91,6 +95,11 @@ class MutateKernel:
             self._replace[idx] = site.replace
             self._rule_start[ri + 1] = idx + 1
         np.maximum.accumulate(self._rule_start, out=self._rule_start)
+        #: ``_rule_start`` on the host, checked here once: the card
+        #: wrapper takes it instead of reading the device copy back
+        self.bounds = tuple(self._rule_start.tolist())
+        kernels.k3_check_bounds(self.bounds, s)
+        self._site_slot = kernels.k3_site_slot(self.bounds)
         self._sites: Optional[Dict[str, torch.Tensor]] = None
 
     def site_tensors(self) -> Dict[str, torch.Tensor]:
@@ -99,21 +108,23 @@ class MutateKernel:
             tables = {'t_is_num': self._t_is_num, 't_milli': self._t_milli,
                       't_len': self._t_len, 't_bytes': self._t_bytes,
                       'add_only': self._add_only, 'replace': self._replace,
+                      'site_slot': self._site_slot,
                       'rule_start': self._rule_start}
             self._sites = {k: torch.from_numpy(v).to(self.device)
                            for k, v in tables.items()}
         return self._sites
 
-    def stage(self, lanes: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """``lanes`` on the kernel's device: pinned host memory and a
-        ``non_blocking`` copy on the current stream (no copy on the
-        CPU)."""
-        out = {}
-        for k, v in lanes.items():
-            host = torch.from_numpy(np.ascontiguousarray(v))
-            out[k] = host if self.device.type == 'cpu' else \
-                host.pin_memory().to(self.device, non_blocking=True)
-        return out
+    def stage(self, lanes: Dict[str, np.ndarray]
+              ) -> Tuple[torch.Tensor, 'kernels.K3Layout']:
+        """``lanes`` on the kernel's device: written into one buffer
+        (``kernels.k3_pack``) — pinned host memory from the caching
+        allocator, so concurrent calls never share one — and copied
+        with one ``non_blocking`` copy on the current stream (no copy
+        on the CPU)."""
+        cuda = self.device.type == 'cuda'
+        host, layout = kernels.k3_pack(lanes, pin=cuda)
+        return (host.to(self.device, non_blocking=True) if cuda else host,
+                layout)
 
     def __call__(self, lanes: Dict[str, np.ndarray]
                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -122,7 +133,7 @@ class MutateKernel:
             return (np.zeros((n, self.n_rules), np.int8),
                     np.zeros((n, self.n_rules), np.int64),
                     np.zeros((n, self.n_rules), np.int8))
-        from ..ops.kernels import k3_mutate
-        out = k3_mutate(self.stage(lanes), self.site_tensors())
-        # .cpu() waits for the kernel on its stream
-        return tuple(o.cpu().numpy() for o in out)
+        out = kernels.k3_mutate(self.stage(lanes), self.site_tensors(),
+                                self.bounds)
+        # one copy back; .cpu() waits for the kernel on its stream
+        return kernels.k3_outputs(out.cpu().numpy(), n, self.n_rules)

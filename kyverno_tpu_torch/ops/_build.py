@@ -39,15 +39,17 @@ KERNELS: Dict[str, tuple] = {
         ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
         _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P)),
     'k1h_fdet_select': ('k1h_fdet_select', (
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p)),
+        _P, _P, _P, _P, _P, ctypes.c_longlong, _P, ctypes.c_longlong, _P,
+        _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P)),
     'k1c_wildcard': ('k1c_wildcard', (
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_char_p,
         ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_void_p)),
-    'k3_mutate': ('k3_mutate', (ctypes.c_void_p,) * 17 + (
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)),
+    'k3_mutate': ('k3_mutate', (
+        _P, ctypes.POINTER(ctypes.c_longlong), _P, _P, _P, _P, _P, _P, _P,
+        _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_uint, ctypes.c_int, ctypes.c_int, _P)),
     'k4_status_hist': ('k4_status_hist', (
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p)),

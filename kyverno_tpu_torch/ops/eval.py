@@ -1856,6 +1856,13 @@ def build_evaluator(cps: CompiledPolicySet, device=None):
                             if name in special]
             self.status_layout = {name: e for name, e in layout.items()
                                   if name not in special}
+            #: where K1h reads the match and row-validity lanes in place:
+            #: (packed buffer name, first column); no row-validity lane
+            #: is None
+            self.match_at = layout['__match__'][:2] \
+                if '__match__' in layout else None
+            self.rowvalid_at = layout['__rowvalid__'][:2] \
+                if '__rowvalid__' in layout else None
             with_adm = adm_table is not None and vm.has_adm_lanes(layout)
             self.program = vm.lower(vm_info, vm_trees, layout) \
                 if vm_trees or with_adm else None
@@ -1921,14 +1928,15 @@ def build_evaluator(cps: CompiledPolicySet, device=None):
                 plan = plans[sig] = LayoutPlan(layout)
         return plan
 
-    def evaluate_unique(packed: Dict[str, torch.Tensor], layout):
+    def evaluate_unique(packed: Dict[str, torch.Tensor], plan: LayoutPlan):
         """Unique-space (s_u, d_u, fdet_u), aux channels past n_uniq,
         and the admission columns (none when the layout carries no
-        admission lanes): K1v for its trees and the admission match,
-        then the eager walk for trees past a kernel limit."""
+        admission lanes) of a batch of ``plan``'s layout: K1v for its
+        trees and the admission match, then the eager walk for trees
+        past a kernel limit."""
         ref = next(iter(packed.values()))
         rows, dev = ref.shape[0], ref.device
-        program = plan_for(layout).program
+        program = plan.program
         if program is not None:
             with torch.profiler.record_function('k1v_status_vm'):
                 out = kernels.status_vm(packed, program)
@@ -1936,7 +1944,7 @@ def build_evaluator(cps: CompiledPolicySet, device=None):
             out = outputs(rows, dev, True) + (
                 torch.empty((rows, 0), dtype=torch.int8, device=dev),)
         if eager_trees:
-            t = plan_for(layout).status_lanes(packed)
+            t = plan.status_lanes(packed)
             with torch.profiler.record_function('k1_eager_walk'), _walk():
                 place(out[:3], eager_trees, walk_trees(t, eager_trees))
         return out
@@ -1944,7 +1952,7 @@ def build_evaluator(cps: CompiledPolicySet, device=None):
     def evaluate(packed: Dict[str, torch.Tensor], layout):
         """Program-space evaluation (raw consumers: the mesh paths):
         unique results expanded by a device-side column gather."""
-        s_u, d_u, fdet_u, _adm = evaluate_unique(packed, layout)
+        s_u, d_u, fdet_u, _adm = evaluate_unique(packed, plan_for(layout))
         if n_uniq == 0 or expand_identity:
             return s_u, d_u, fdet_u
         with _consts():
@@ -1960,44 +1968,45 @@ def build_evaluator(cps: CompiledPolicySet, device=None):
     #: their missing cells read -1 → host materialization.
     fdet_k = int(os.environ.get('KTPU_FDET_K', '32'))
 
+    #: K1h's column source map: fail-detail column c belongs to unique
+    #: tree src[c] (c for c < n_uniq; each uniq_any child's tree past
+    #: it), one int32 device table per device
+    k1h_src_np = np.concatenate(
+        [np.arange(n_uniq)] + [np.full(cnt, u) for u, cnt in uniq_any]
+    ).astype(np.int32)
+    k1h_src: Dict[torch.device, torch.Tensor] = {}
+
+    def src_on(dev: torch.device) -> torch.Tensor:
+        t = k1h_src.get(dev)
+        if t is None:
+            t = k1h_src[dev] = torch.from_numpy(k1h_src_np).to(dev)
+        return t
+
     def evaluate_packed(packed: Dict[str, torch.Tensor],
                         layout: Dict[str, Tuple[str, int, int,
                                                 Tuple[int, ...]]]):
         if '__match__' not in layout:
             return evaluate(packed, layout)
-        # ragged batches: rows past the live row count are canonical-
-        # capacity padding.  Per-row outputs for them are sliced off on
-        # the host; everything that selects or reduces ACROSS rows
-        # masks them here so every occupancy gives bit-identical output.
-        lanes = plan_for(layout).lanes(packed, ('__rowvalid__', '__match__'))
-        rowvalid = lanes.get('__rowvalid__')
-        match = lanes['__match__']
         # compact form, all in UNIQUE space (match arrives pre-folded to
-        # [R, n_uniq]): ship (statuses|details) as one int8 buffer and
-        # the (matched & FAIL) fail-detail cells as [cols | fds]; the
-        # host expands duplicates with one gather (expand_compact)
-        s_u, d_u, fdet_u, adm = evaluate_unique(packed, layout)
-        rel_main = (s_u == FAIL) & (match != 0)
-        if rowvalid is not None:
-            rel_main = rel_main & (rowvalid != 0)[:, None]
-        parts = [rel_main]
-        for u, cnt in uniq_any:
-            parts.append(rel_main[:, u:u + 1].expand(s_u.shape[0], cnt))
-        rel = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
-        c = fdet_u.shape[1]
-        # fixed budget: rows overflowing it degrade to exact host
-        # materialization, never wrong answers.  The first k relevant
-        # columns and their fail details come from one kernel (K1h).
-        k = min(fdet_k, c)
+        # [R, n_uniq]): ship (statuses|details|admission match) as one
+        # int8 row and the (matched & FAIL) fail-detail cells as [cols |
+        # fds]; the host expands duplicates with one gather
+        # (expand_compact).  Ragged batches: rows past the live row
+        # count are canonical-capacity padding; the select masks them
+        # with the row-validity lane so every occupancy gives
+        # bit-identical output.  Fixed budget: rows overflowing it
+        # degrade to exact host materialization, never wrong answers.
+        plan = plan_for(layout)
+        s_u, d_u, fdet_u, adm = evaluate_unique(packed, plan)
+        k = min(fdet_k, n_cols_u)
         with torch.profiler.record_function('k1h_fdet_select'):
-            out32 = kernels.fdet_select(rel.contiguous(),
-                                        fdet_u.contiguous(), k)
-        # per-row admission match for eligible programs, decided in K1v
-        # and shipped back as extra int8 columns (the host replaces its
-        # conservative match upper bound with these before assembly;
-        # rows the encoder marked non-valid are ignored there)
-        out8 = torch.cat([s_u, d_u, adm], dim=1)
-        return out8, out32
+            g, col = plan.match_at
+            rv = plan.rowvalid_at
+            rows = kernels.fdet_select(
+                s_u, d_u, adm, fdet_u, (packed[g], col),
+                None if rv is None else (packed[rv[0]], rv[1]),
+                src_on(s_u.device), k)
+        return CompactOut(rows, 2 * n_uniq + adm.shape[1], k)
 
     def call(packed: Dict[str, Any],
              layout: Dict[str, Tuple[str, int, int, Tuple[int, ...]]]):
@@ -2058,6 +2067,32 @@ def fold_match_unique(mm: np.ndarray, evaluator) -> np.ndarray:
         else:
             out[:, u] = mm[:, cols].max(axis=1)
     return out
+
+
+class CompactOut:
+    """``(out8, out32)`` of one K1 call on the compact path: views of
+    ``rows``, the one allocation K1h writes (``kernels.fdet_views``).
+    The views are made when read, so the scan, which copies ``rows``
+    back once (``host``), dispatches no op for them."""
+
+    __slots__ = ('rows', 'n8', 'k')
+
+    def __init__(self, rows: torch.Tensor, n8: int, k: int):
+        self.rows, self.n8, self.k = rows, n8, k
+
+    def __len__(self) -> int:
+        return 2
+
+    def __getitem__(self, i):
+        return kernels.fdet_views(self.rows, self.n8, self.k)[i]
+
+    def __iter__(self):
+        return iter(kernels.fdet_views(self.rows, self.n8, self.k))
+
+    def host(self) -> Tuple[np.ndarray, np.ndarray]:
+        """``(out8, out32)`` on the host from one copy of ``rows`` (on
+        the card it waits for the call's device work)."""
+        return kernels.fdet_views(self.rows.cpu().numpy(), self.n8, self.k)
 
 
 def expand_compact(out8: np.ndarray, out32: np.ndarray, evaluator):

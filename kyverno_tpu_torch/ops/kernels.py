@@ -11,20 +11,22 @@ built by ``ops/_build.py``):
   its launch plan from ``ops/vm.py``: a block per row tile and group of
   parts, a warp per part); its plain version is the evaluator's eager
   walk and ``_adm_match_graph``;
-* K1h ``fdet_select`` — the compact fail-detail select of
-  ``evaluate_packed``: the first k relevant columns of each row and
-  their fail details;
+* K1h ``fdet_select`` — the tail of ``evaluate_packed`` over K1v's
+  outputs: each row's relevance (FAIL, matched, row valid, with the
+  ``uniq_any`` children expanded), its first k relevant columns and
+  their fail details, and its out8 row, into one allocation;
 * K1c ``wildcard_match`` — the glob DP of ``_View.wildcard_const`` and
   its Kleene verdict (the eager walk's; inside K1v the same DP runs
   from ``csrc/glob_dp.cuh``);
 * K3 ``k3_mutate`` — per (resource, rule) of a lowered mutate set: the
-  edit bitmask, the status and the first-fault reason;
+  edit bitmask, the status and the first-fault reason, from the lanes
+  staged in one buffer into one output buffer;
 * K4h ``status_histogram`` — the per-rule verdict histogram of the
   sharded scan step (``parallel/mesh.py``), before its all-reduce.
 
 Each wrapper checks device, dtype, shape and contiguity, launches on
 the current CUDA stream, raises if the launch fails, and counts its
-launches in ``LAUNCHES``.  A tensor on the CPU takes the plain torch
+launches in ``LAUNCHES``; none waits for the card.  A tensor on the CPU takes the plain torch
 version beside it; a CUDA tensor takes the kernel or raises — there is
 no fallback.  The plain versions are what the CPU tests hold against
 the JAX package, and what the card's kernels are held against.
@@ -32,12 +34,15 @@ the JAX package, and what the card's kernels are held against.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import ctypes
+import functools
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from ..compiler.ir import (TAG_ARRAY, TAG_BOOL, TAG_FLOAT, TAG_INT,
-                           TAG_MISSING, TAG_STRING)
+from ..compiler.ir import (STATUS_FAIL, TAG_ARRAY, TAG_BOOL, TAG_FLOAT,
+                           TAG_INT, TAG_MISSING, TAG_STRING)
 
 #: launches per kernel since the last ``reset_launches``
 LAUNCHES: Dict[str, int] = {'k1_vm': 0, 'k1h_fdet_select': 0,
@@ -77,9 +82,12 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _check(cond: bool, what: str) -> None:
+def _check(cond: bool, what) -> None:
+    """Raise ``ValueError(what)`` unless ``cond``; ``what`` may be a
+    callable that makes the message, so a call that passes formats
+    nothing."""
     if not cond:
-        raise ValueError(what)
+        raise ValueError(what() if callable(what) else what)
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
@@ -156,7 +164,6 @@ def _status_vm(packed, program, counter):
     adm = torch.empty((rows, program.n_adm), dtype=torch.int8, device=dev)
     if rows == 0 or program.n_groups == 0:
         return s_u, d_u, fd_u, adm
-    import ctypes
     from . import _build
     lib = _build.load('k1_vm')
     tab = program.device_tables(dev)
@@ -184,66 +191,175 @@ def _status_vm(packed, program, counter):
 
 
 # ---------------------------------------------------------------------------
-# K1h: compact fail-detail select
+# K1h: the tail of a K1 call — relevance, compact fail-detail select and
+# the out8 row, into one allocation
 
-def fdet_select(rel: torch.Tensor, fdet_u: torch.Tensor, k: int
-                ) -> torch.Tensor:
-    """``[R, 2k]`` int32: per row, the first ``k`` columns where ``rel``
-    holds (ascending; ``C`` past the row's count) and then ``fdet_u`` at
-    those columns (``fdet_u[:, C - 1]`` past the count)."""
-    _check(rel.dim() == 2 and rel.dtype == torch.bool,
-           f'rel must be a 2-D bool tensor, got {rel.dtype} {tuple(rel.shape)}')
-    _check(fdet_u.dtype == torch.int32 and fdet_u.shape == rel.shape,
-           'fdet_u must be int32 of the shape of rel')
-    r, c = rel.shape
-    _check(0 <= k <= c, f'k={k} outside [0, {c}]')
-    if _on_cpu(rel, fdet_u):
-        return fdet_select_plain(rel, fdet_u, k)
-    _check(rel.is_contiguous() and fdet_u.is_contiguous(),
-           'fdet_select takes contiguous tensors')
-    out = torch.empty((r, 2 * k), dtype=torch.int32, device=rel.device)
-    if r == 0 or k == 0:
+#: a lane of a packed batch as K1h reads it in place: the ``[R, W]``
+#: buffer (``pack_batch``'s ``pk_*``, one byte per element) and the
+#: lane's first column
+Lane = Tuple[torch.Tensor, int]
+
+_BYTE_DTYPES = (torch.uint8, torch.int8, torch.bool)
+
+
+def fdet_row_bytes(n8: int, k: int) -> Tuple[int, int]:
+    """``(row bytes, out32 offset)`` of K1h's output rows: the ``n8``
+    out8 bytes, zero padding to a 4-byte boundary, then ``2k`` int32."""
+    off = (n8 + 3) // 4 * 4
+    return off + 8 * k, off
+
+
+def fdet_views(rows, n8: int, k: int):
+    """``(out8 int8 [R, n8], out32 int32 [R, 2k])``: views of K1h's
+    output rows (a torch tensor or its numpy copy)."""
+    _nbytes, off = fdet_row_bytes(n8, k)
+    if isinstance(rows, np.ndarray):
+        return rows[:, :n8], rows[:, off:off + 8 * k].view(np.int32)
+    if k == 0:
+        # torch views no dtype change across a stride that is not a
+        # multiple of the new size, as rows of 0 to 3 bytes have
+        return rows[:, :n8], rows.new_empty((rows.shape[0], 0),
+                                            dtype=torch.int32)
+    return rows[:, :n8], rows[:, off:off + 8 * k].view(torch.int32)
+
+
+def _lane_check(lane: Optional[Lane], rows: int, width: int, what: str
+                ) -> None:
+    if lane is None:
+        return
+    buf, col = lane
+    _check(buf.dim() == 2 and buf.dtype in _BYTE_DTYPES and
+           buf.shape[0] == rows and
+           (buf.numel() <= 1 or buf.shape[1] <= 1 or buf.stride(1) == 1),
+           lambda: f'{what} must lie in a [{rows}, W] byte buffer with unit '
+           f'column stride, got {buf.dtype} {tuple(buf.shape)}')
+    _check(0 <= col and col + width <= buf.shape[1],
+           lambda: f'{what} columns [{col}, {col + width}) outside the '
+           f'buffer\'s {buf.shape[1]}')
+
+
+def _fdet_check(s_u, d_u, adm, fdet_u, match, rowvalid, src, k) -> None:
+    _check(s_u.dim() == 2 and s_u.dtype == torch.int8,
+           lambda: f's_u must be int8 [R, U], got {s_u.dtype} '
+           f'{tuple(s_u.shape)}')
+    r, u = s_u.shape
+    _check(d_u.dtype == torch.int8 and d_u.shape == s_u.shape,
+           'd_u must be int8 of the shape of s_u')
+    _check(adm.dtype == torch.int8 and adm.dim() == 2 and
+           adm.shape[0] == r, lambda: f'adm must be int8 [{r}, A]')
+    _check(fdet_u.dtype == torch.int32 and fdet_u.dim() == 2 and
+           fdet_u.shape[0] == r, lambda: f'fdet_u must be int32 [{r}, C]')
+    c = fdet_u.shape[1]
+    _check(src.dtype == torch.int32 and tuple(src.shape) == (c,),
+           lambda: f'src must be int32 [{c}]')
+    _check(0 <= k <= c, lambda: f'k={k} outside [0, {c}]')
+    _lane_check(match, r, u, 'match')
+    _lane_check(rowvalid, r, 1, 'rowvalid')
+
+
+def fdet_select(s_u: torch.Tensor, d_u: torch.Tensor, adm: torch.Tensor,
+                fdet_u: torch.Tensor, match: Lane, rowvalid: Optional[Lane],
+                src: torch.Tensor, k: int) -> torch.Tensor:
+    """The tail of ``evaluate_packed`` over K1v's outputs: int8 ``[R,
+    RB]`` rows (``fdet_row_bytes``; ``fdet_views`` splits them), each
+    the out8 row ``[s_u | d_u | adm]`` and the out32 row: the first
+    ``k`` relevant columns (ascending; ``C`` past the row's count) and
+    ``fdet_u`` at those columns (``fdet_u[:, C - 1]`` past the count).
+    Column ``c`` of the ``C`` fail-detail columns is relevant when its
+    unique tree ``u = src[c]`` FAILed, ``match`` (the ``__match__``
+    lane, ``[R, U]``) holds for ``u`` and the row's ``rowvalid`` lane is
+    non-zero (no ``rowvalid``: every row); ``src`` maps each
+    ``uniq_any`` child column to its tree.  The two lanes are read in
+    their packed buffers, with their row strides."""
+    _fdet_check(s_u, d_u, adm, fdet_u, match, rowvalid, src, k)
+    lanes = (match[0],) if rowvalid is None else (match[0], rowvalid[0])
+    if _on_cpu(s_u, d_u, adm, fdet_u, src, *lanes):
+        return fdet_select_plain(s_u, d_u, adm, fdet_u, match, rowvalid,
+                                 src, k)
+    _check(all(t.is_contiguous() for t in (s_u, d_u, adm, fdet_u, src)),
+           'fdet_select takes contiguous K1v outputs')
+    r, u = s_u.shape
+    n8 = 2 * u + adm.shape[1]
+    nbytes, off = fdet_row_bytes(n8, k)
+    out = torch.empty((r, nbytes), dtype=torch.int8, device=s_u.device)
+    if r == 0 or nbytes == 0:
         return out
     from . import _build
     lib = _build.load('k1h_fdet_select')
-    with torch.cuda.device(rel.device):
-        rc = lib.k1h_fdet_select(rel.data_ptr(), fdet_u.data_ptr(),
-                                 out.data_ptr(), r, c, k, _stream(rel))
+    mbuf, mcol = match
+    rv = (None, 0) if rowvalid is None else \
+        (rowvalid[0].data_ptr() + rowvalid[1], rowvalid[0].stride(0))
+    with torch.cuda.device(s_u.device):
+        rc = lib.k1h_fdet_select(
+            s_u.data_ptr(), d_u.data_ptr(), adm.data_ptr(),
+            fdet_u.data_ptr(), mbuf.data_ptr() + mcol, mbuf.stride(0),
+            rv[0], rv[1], src.data_ptr(), out.data_ptr(), r, u,
+            adm.shape[1], fdet_u.shape[1], k, nbytes, off, STATUS_FAIL,
+            _stream(s_u))
     if rc != 0:
         raise RuntimeError(f'k1h_fdet_select launch failed: CUDA error {rc}')
     LAUNCHES['k1h_fdet_select'] += 1
     return out
 
 
-def fdet_select_plain(rel: torch.Tensor, fdet_u: torch.Tensor, k: int
+def _fdet_rel(s_u, match, rowvalid, src):
+    # the evaluator's relevance glue: (FAIL & matched & row valid) per
+    # unique tree, then one column per fail-detail column
+    buf, col = match
+    rel = (s_u == STATUS_FAIL) & (buf[:, col:col + s_u.shape[1]] != 0)
+    if rowvalid is not None:
+        rel = rel & (rowvalid[0][:, rowvalid[1]] != 0)[:, None]
+    return rel[:, src.long()]
+
+
+def _fdet_rows(s_u, d_u, adm, out32) -> torch.Tensor:
+    # out8 and out32 laid out as the kernel writes them
+    out8 = torch.cat([s_u, d_u, adm], dim=1)
+    nbytes, off = fdet_row_bytes(out8.shape[1], out32.shape[1] // 2)
+    rows = torch.zeros((s_u.shape[0], nbytes), dtype=torch.int8,
+                       device=s_u.device)
+    rows[:, :out8.shape[1]] = out8
+    rows[:, off:] = out32.contiguous().view(torch.int8)
+    return rows
+
+
+def fdet_select_plain(s_u: torch.Tensor, d_u: torch.Tensor,
+                      adm: torch.Tensor, fdet_u: torch.Tensor, match: Lane,
+                      rowvalid: Optional[Lane], src: torch.Tensor, k: int
                       ) -> torch.Tensor:
-    """Plain torch version of the kernel's stream compaction: a running
-    count of relevant columns gives each relevant cell its output slot
-    (slots >= k go to a spill column that is dropped)."""
+    """Plain torch version: the evaluator's relevance glue, then a
+    stream compaction — a running count of relevant columns gives each
+    relevant cell its output slot (slots >= k go to a spill column that
+    is dropped) — and the out8 concatenation."""
+    rel = _fdet_rel(s_u, match, rowvalid, src)
     r, c = rel.shape
     if k == 0:
-        return torch.zeros((r, 0), dtype=torch.int32, device=rel.device)
+        out32 = torch.zeros((r, 0), dtype=torch.int32, device=rel.device)
+        return _fdet_rows(s_u, d_u, adm, out32)
     slot = torch.cumsum(rel.to(torch.int32), dim=1) - 1
     slot = torch.where(rel & (slot < k), slot, k)
     cols = torch.arange(c, dtype=torch.int32, device=rel.device)
     order = torch.full((r, k + 1), c, dtype=torch.int32, device=rel.device)
-    order.scatter_(1, slot, cols.expand(r, c))
+    order.scatter_(1, slot.long(), cols.expand(r, c))
     order = order[:, :k]
     fds = torch.gather(fdet_u, 1, torch.clamp(order, max=c - 1).long())
-    return torch.cat([order, fds], dim=1)
+    return _fdet_rows(s_u, d_u, adm, torch.cat([order, fds], dim=1))
 
 
-def fdet_select_library(rel: torch.Tensor, fdet_u: torch.Tensor, k: int
+def fdet_select_library(s_u: torch.Tensor, d_u: torch.Tensor,
+                        adm: torch.Tensor, fdet_u: torch.Tensor, match: Lane,
+                        rowvalid: Optional[Lane], src: torch.Tensor, k: int
                         ) -> torch.Tensor:
-    """The same function through PyTorch's sort and gather, as the JAX
-    evaluator formulates it.  A speed yardstick only: the port never
-    calls it."""
-    r, c = rel.shape
+    """The same function as the JAX evaluator formulates it, in torch:
+    the relevance glue, PyTorch's sort and gather, and the
+    concatenations.  A speed yardstick only: the port never calls it."""
+    rel = _fdet_rel(s_u, match, rowvalid, src)
+    c = rel.shape[1]
     cols = torch.arange(c, dtype=torch.int32, device=rel.device)
     keys = torch.where(rel, cols, c)
     order = torch.sort(keys, dim=1).values[:, :k]
     fds = torch.gather(fdet_u, 1, torch.clamp(order, max=c - 1).long())
-    return torch.cat([order, fds], dim=1)
+    return _fdet_rows(s_u, d_u, adm, torch.cat([order, fds], dim=1))
 
 
 # ---------------------------------------------------------------------------
@@ -333,125 +449,227 @@ def wildcard_plain(head: torch.Tensor, str_len: torch.Tensor,
 # ---------------------------------------------------------------------------
 # K3: the device mutate decision
 
-#: sites per rule: one warp lane each (mutate/plan.py MAX_SITES)
+#: sites per rule: one bit each of the rule's 32-bit edit mask
+#: (mutate/plan.py MAX_SITES)
 K3_MAX_SITES = 32
+#: rules per launch: a block keeps two 32-bit words per (row, rule) in
+#: shared memory, at most 227 KB of it
+K3_MAX_RULES = 227 * 1024 // 8
 
 _NUM_TAGS = (TAG_BOOL, TAG_INT, TAG_FLOAT)
 _NUM_TAG_BITS = sum(1 << tg for tg in _NUM_TAGS)
 
-_K3_LANES = (('tag', torch.int8), ('istate', torch.int8),
-             ('milli', torch.int64), ('milli_ok', torch.bool),
-             ('slen', torch.int32))
+#: the lanes of ``mutate/encode.py`` in the order K3's staged buffer
+#: holds them, with their dtypes; ``sbytes`` is ``[R, S, w]``, ``valid``
+#: ``[R]``, the others ``[R, S]``
+_K3_LANES = (('milli', np.int64), ('sbytes', np.uint8), ('slen', np.int32),
+             ('tag', np.int8), ('istate', np.int8), ('milli_ok', np.bool_),
+             ('valid', np.bool_))
+_K3_TORCH = {np.int64: torch.int64, np.uint8: torch.uint8,
+             np.int32: torch.int32, np.int8: torch.int8,
+             np.bool_: torch.bool}
+#: the site tables (``mutate/kernel.py MutateKernel.site_tensors``):
+#: ``site_slot`` is ``32 * rule + bit`` of each site
 _K3_SITES = (('t_is_num', torch.bool), ('t_milli', torch.int64),
              ('t_len', torch.int32), ('add_only', torch.bool),
-             ('replace', torch.bool))
+             ('replace', torch.bool), ('site_slot', torch.int32))
 
 
-def _k3_check(lanes: Dict[str, torch.Tensor],
-              sites: Dict[str, torch.Tensor]) -> Tuple[int, int, int, int]:
-    """(R, S, NR, w) of a K3 call, after its dtype and shape checks."""
-    tag = lanes['tag']
-    _check(tag.dim() == 2, f'tag must be [R, S], got {tuple(tag.shape)}')
-    r, s = tag.shape
+class K3Layout(NamedTuple):
+    """Where each lane of a K3 call lies in its staged byte buffer."""
+    rows: int
+    sites: int
+    width: int
+    offsets: Tuple[int, ...]   # byte offset of each lane of _K3_LANES
+    nbytes: int
+
+
+def _k3_shape(name: str, r: int, s: int, w: int) -> Tuple[int, ...]:
+    return (r, s, w) if name == 'sbytes' else (r,) if name == 'valid' \
+        else (r, s)
+
+
+@functools.lru_cache(maxsize=64)
+def k3_layout(rows: int, sites: int, width: int) -> K3Layout:
+    """The staged buffer of ``rows`` x ``sites`` lanes with a
+    ``width``-byte window: each lane at an offset aligned to 8 bytes,
+    the window to 16, so the kernel's wide loads stay aligned."""
+    off, offsets = 0, []
     for name, dt in _K3_LANES:
-        t = lanes[name]
-        _check(t.dtype == dt and tuple(t.shape) == (r, s),
-               f'{name} must be {dt} [{r}, {s}], got {t.dtype} '
-               f'{tuple(t.shape)}')
-    sb = lanes['sbytes']
-    _check(sb.dtype == torch.uint8 and sb.dim() == 3 and
-           tuple(sb.shape[:2]) == (r, s),
-           f'sbytes must be uint8 [{r}, {s}, w], got {sb.dtype} '
-           f'{tuple(sb.shape)}')
-    w = sb.shape[2]
-    valid = lanes['valid']
-    _check(valid.dtype == torch.bool and tuple(valid.shape) == (r,),
-           f'valid must be bool [{r}]')
+        align = 16 if name == 'sbytes' else 8
+        off = -(-off // align) * align
+        offsets.append(off)
+        off += int(np.prod(_k3_shape(name, rows, sites, width))) * \
+            np.dtype(dt).itemsize
+    return K3Layout(rows, sites, width, tuple(offsets), off)
+
+
+def k3_pack(lanes: Dict[str, np.ndarray], pin: bool = False
+            ) -> Tuple[torch.Tensor, K3Layout]:
+    """The lanes of one K3 call (numpy, ``mutate/encode.py``) written
+    into one uint8 host buffer (pinned with ``pin``, from the caching
+    host allocator) at ``k3_layout``'s offsets."""
+    tag, sb = lanes['tag'], lanes['sbytes']
+    _check(tag.ndim == 2 and sb.ndim == 3,
+           lambda: f'tag must be [R, S] and sbytes [R, S, w], got '
+           f'{tag.shape} and {sb.shape}')
+    r, s = tag.shape
+    layout = k3_layout(r, s, sb.shape[2])
+    host = torch.empty(layout.nbytes, dtype=torch.uint8, pin_memory=pin)
+    flat = host.numpy()
+    for (name, dt), off in zip(_K3_LANES, layout.offsets):
+        a = lanes[name]
+        shape = _k3_shape(name, r, s, layout.width)
+        _check(a.dtype == dt and a.shape == shape,
+               lambda: f'{name} must be {np.dtype(dt)} {shape}, got {a.dtype} '
+               f'{a.shape}')
+        flat[off:off + a.nbytes].view(dt).reshape(shape)[...] = a
+    return host, layout
+
+
+def k3_unpack(buf: torch.Tensor, layout: K3Layout
+              ) -> Dict[str, torch.Tensor]:
+    """The lanes of a staged K3 buffer, as views of it."""
+    out = {}
+    for (name, dt), off in zip(_K3_LANES, layout.offsets):
+        shape = _k3_shape(name, layout.rows, layout.sites, layout.width)
+        n = int(np.prod(shape)) * np.dtype(dt).itemsize
+        out[name] = buf[off:off + n].view(_K3_TORCH[dt]).view(shape)
+    return out
+
+
+def k3_outputs(out, rows: int, n_rules: int):
+    """``(status int8, edits int64, reason int8)``, each ``[rows,
+    n_rules]``: views of K3's output buffer (a torch tensor or its numpy
+    copy), which holds edits, then status, then reason."""
+    n = rows * n_rules
+    i64, i8 = (np.int64, np.int8) if isinstance(out, np.ndarray) else \
+        (torch.int64, torch.int8)
+    return (out[8 * n:9 * n].view(i8).reshape(rows, n_rules),
+            out[:8 * n].view(i64).reshape(rows, n_rules),
+            out[9 * n:10 * n].view(i8).reshape(rows, n_rules))
+
+
+def k3_check_bounds(bounds: Sequence[int], n_sites: int) -> None:
+    """``bounds`` (``rule_start`` on the host) must rise from 0 to
+    ``n_sites`` by at most ``K3_MAX_SITES`` sites a rule."""
+    _check(len(bounds) >= 1 and bounds[0] == 0 and bounds[-1] == n_sites
+           and all(0 <= b - a <= K3_MAX_SITES
+                   for a, b in zip(bounds, bounds[1:])),
+           lambda: f'rule_start must rise from 0 to {n_sites} by at most '
+           f'{K3_MAX_SITES} sites per rule')
+
+
+def k3_site_slot(bounds: Sequence[int]) -> np.ndarray:
+    """int32 ``[S]``: ``32 * rule + bit`` of each site (site k of a rule
+    is bit k of its edit mask)."""
+    b = np.asarray(bounds, np.int64)
+    rule = np.repeat(np.arange(len(b) - 1), np.diff(b))
+    return (32 * rule + np.arange(b[-1]) - b[rule]).astype(np.int32)
+
+
+def _k3_check(lanes: Tuple[torch.Tensor, K3Layout],
+              sites: Dict[str, torch.Tensor],
+              bounds: Optional[Sequence[int]]) -> Sequence[int]:
+    """The host bounds of a K3 call, after its dtype and shape checks."""
+    buf, layout = lanes
+    _check(buf.dtype == torch.uint8 and buf.dim() == 1 and
+           buf.numel() >= layout.nbytes and buf.is_contiguous(),
+           lambda: f'the staged lanes must be a contiguous uint8 buffer of '
+           f'{layout.nbytes} bytes')
+    _check(layout == k3_layout(layout.rows, layout.sites, layout.width),
+           'the staged lanes\' layout is not k3_layout\'s')
+    s, w = layout.sites, layout.width
     for name, dt in _K3_SITES:
         t = sites[name]
         _check(t.dtype == dt and tuple(t.shape) == (s,),
-               f'{name} must be {dt} [{s}], got {t.dtype} {tuple(t.shape)}')
+               lambda: f'{name} must be {dt} [{s}], got {t.dtype} '
+               f'{tuple(t.shape)}')
     tb = sites['t_bytes']
     _check(tb.dtype == torch.uint8 and tuple(tb.shape) == (s, w),
-           f't_bytes must be uint8 [{s}, {w}], got {tb.dtype} '
+           lambda: f't_bytes must be uint8 [{s}, {w}], got {tb.dtype} '
            f'{tuple(tb.shape)}')
     rs = sites['rule_start']
     _check(rs.dtype == torch.int32 and rs.dim() == 1 and rs.numel() >= 1,
            'rule_start must be int32 [NR + 1]')
-    bounds = rs.tolist()
-    _check(bounds[0] == 0 and bounds[-1] == s and
-           all(0 <= b - a <= K3_MAX_SITES
-               for a, b in zip(bounds, bounds[1:])),
-           f'rule_start must rise from 0 to {s} by at most {K3_MAX_SITES} '
-           f'sites per rule')
-    return r, s, rs.numel() - 1, w
+    if bounds is None:
+        # the card wrapper never reads rule_start back (a host sync)
+        _check(rs.device.type == 'cpu',
+               'k3_mutate on the card takes the host bounds of rule_start')
+        bounds = rs.tolist()
+    _check(len(bounds) == rs.numel(),
+           lambda: f'{len(bounds)} bounds for a rule_start of {rs.numel()}')
+    k3_check_bounds(bounds, s)
+    return bounds
 
 
-def _k3_zeros(r: int, nr: int, dev) -> Tuple[torch.Tensor, torch.Tensor,
-                                              torch.Tensor]:
-    return (torch.zeros((r, nr), dtype=torch.int8, device=dev),
-            torch.zeros((r, nr), dtype=torch.int64, device=dev),
-            torch.zeros((r, nr), dtype=torch.int8, device=dev))
-
-
-def k3_mutate(lanes: Dict[str, torch.Tensor], sites: Dict[str, torch.Tensor]
-              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(status i8, edits i64, reason i8)``, each ``[R, NR]``, of the
-    mutate lanes of ``mutate/encode.py`` (``tag``, ``istate``, ``milli``,
-    ``milli_ok``, ``slen`` ``[R, S]``, ``sbytes`` ``[R, S, w]``,
-    ``valid`` ``[R]``) against one program's site tables (``t_is_num``,
-    ``t_milli``, ``t_len``, ``add_only``, ``replace`` ``[S]``, ``t_bytes``
-    ``[S, w]``, and ``rule_start`` ``[NR + 1]``: rule r owns sites
-    ``rule_start[r]:rule_start[r + 1]``, at most 32 of them)."""
-    r, s, nr, w = _k3_check(lanes, sites)
-    ts = [lanes[k] for k in ('tag', 'istate', 'milli', 'milli_ok', 'slen',
-                             'sbytes', 'valid')] + \
-        [sites[k] for k in ('t_is_num', 't_milli', 't_len', 't_bytes',
-                            'add_only', 'replace', 'rule_start')]
-    if _on_cpu(*ts):
-        return k3_mutate_plain(lanes, sites)
+def k3_mutate(lanes: Tuple[torch.Tensor, K3Layout],
+              sites: Dict[str, torch.Tensor],
+              bounds: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """K3's uint8 output buffer (``k3_outputs`` splits it into status
+    int8, edits int64 and reason int8, each ``[R, NR]``) of the mutate
+    lanes of ``mutate/encode.py``, staged in one buffer (``k3_pack``:
+    ``tag``, ``istate``, ``milli``, ``milli_ok``, ``slen`` ``[R, S]``,
+    ``sbytes`` ``[R, S, w]``, ``valid`` ``[R]``), against one program's
+    site tables (``t_is_num``, ``t_milli``, ``t_len``, ``add_only``,
+    ``replace``, ``site_slot`` ``[S]``, ``t_bytes`` ``[S, w]``, and
+    ``rule_start`` ``[NR + 1]``: rule r owns sites
+    ``rule_start[r]:rule_start[r + 1]``, at most 32 of them).  On the
+    card ``bounds``, ``rule_start`` on the host, is required: the
+    wrapper does not wait for the card."""
+    buf, layout = lanes
+    bounds = _k3_check(lanes, sites, bounds)
+    r, s, w, nr = layout.rows, layout.sites, layout.width, len(bounds) - 1
+    ts = [sites[name] for name, _dt in _K3_SITES] + [sites['t_bytes']]
+    if _on_cpu(buf, sites['rule_start'], *ts):
+        return k3_mutate_plain(lanes, sites, bounds)
+    _check(w >= 8 and w % 8 == 0,
+           lambda: f'window {w} is not a multiple of 8')
+    _check(nr <= K3_MAX_RULES, lambda: f'{nr} rules > {K3_MAX_RULES}')
     _check(all(t.is_contiguous() for t in ts),
-           'k3_mutate takes contiguous tensors')
-    _check(w >= 8 and w % 8 == 0, f'window {w} is not a multiple of 8')
-    _check(lanes['sbytes'].data_ptr() % 8 == 0 and
-           sites['t_bytes'].data_ptr() % 8 == 0,
-           'sbytes and t_bytes must be 8-byte aligned')
-    dev = lanes['tag'].device
+           'k3_mutate takes contiguous site tables')
+    _check(buf.data_ptr() % 16 == 0 and sites['t_bytes'].data_ptr() % 16
+           == 0, 'the staged lanes and t_bytes must be 16-byte aligned')
     if r == 0 or s == 0 or nr == 0:
-        return _k3_zeros(r, nr, dev)
-    status = torch.empty((r, nr), dtype=torch.int8, device=dev)
-    edits = torch.empty((r, nr), dtype=torch.int64, device=dev)
-    reason = torch.empty((r, nr), dtype=torch.int8, device=dev)
+        return torch.zeros(r * nr * 10, dtype=torch.uint8, device=buf.device)
+    out = torch.empty(r * nr * 10, dtype=torch.uint8, device=buf.device)
     from . import _build
     lib = _build.load('k3_mutate')
-    with torch.cuda.device(dev):
-        rc = lib.k3_mutate(*[t.data_ptr() for t in ts], status.data_ptr(),
-                           edits.data_ptr(), reason.data_ptr(), r, s, nr, w,
-                           _NUM_TAG_BITS, TAG_MISSING, TAG_STRING,
-                           _stream(ts[0]))
+    with torch.cuda.device(buf.device):
+        rc = lib.k3_mutate(
+            buf.data_ptr(), (ctypes.c_longlong * 7)(*layout.offsets),
+            sites['t_is_num'].data_ptr(), sites['t_milli'].data_ptr(),
+            sites['t_len'].data_ptr(), sites['t_bytes'].data_ptr(),
+            sites['add_only'].data_ptr(), sites['replace'].data_ptr(),
+            sites['site_slot'].data_ptr(), out.data_ptr(), r, s, nr, w,
+            _NUM_TAG_BITS, TAG_MISSING, TAG_STRING, _stream(buf))
     if rc != 0:
         raise RuntimeError(f'k3_mutate launch failed: CUDA error {rc}')
     LAUNCHES['k3_mutate'] += 1
-    return status, edits, reason
+    return out
 
 
-def k3_mutate_plain(lanes: Dict[str, torch.Tensor],
-                    sites: Dict[str, torch.Tensor]
-                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def k3_mutate_plain(lanes: Tuple[torch.Tensor, K3Layout],
+                    sites: Dict[str, torch.Tensor],
+                    bounds: Optional[Sequence[int]] = None) -> torch.Tensor:
     """Plain torch version (kyverno_tpu/mutate/kernel.py
-    ``MutateKernel._eval``).  The JAX code reduces sites to rules with
-    int64 matmuls against a site-to-rule one-hot; torch has no int64
-    matmul on CUDA, so the per-rule sums here are an ``index_add_`` over
-    the site axis (the bit weights are distinct powers of two, so the
-    sum of a rule's weighted edits is its bitmask)."""
+    ``MutateKernel._eval``) over the same staged buffer, with the same
+    output buffer.  The JAX code reduces sites to rules with int64
+    matmuls against a site-to-rule one-hot; torch has no int64 matmul
+    on CUDA, so the per-rule sums here are an ``index_add_`` over the
+    site axis (the bit weights are distinct powers of two, so the sum of
+    a rule's weighted edits is its bitmask)."""
     from ..mutate.kernel import (MUT_FALLBACK, MUT_PASS, MUT_SKIP,
                                  RC_NON_DICT, RC_NONE, RC_REPLACE_MISSING,
                                  RC_UNDECIDABLE)
-    r, s, nr, _w = _k3_check(lanes, sites)
+    buf, layout = lanes
+    bounds = _k3_check(lanes, sites, bounds)
+    r, s, nr = layout.rows, layout.sites, len(bounds) - 1
+    lanes = k3_unpack(buf, layout)
     tag, istate = lanes['tag'], lanes['istate']
     dev = tag.device
     if s == 0:
-        return _k3_zeros(r, nr, dev)
+        return torch.zeros(r * nr * 10, dtype=torch.uint8, device=dev)
     is_num, add_only = sites['t_is_num'], sites['add_only']
     missing = tag == TAG_MISSING
     bad = istate == 2
@@ -488,9 +706,12 @@ def k3_mutate_plain(lanes: Dict[str, torch.Tensor],
                     torch.where(undec_any, RC_UNDECIDABLE, RC_NONE)))
     # capacity-padding rows are SKIP with no edits and no reason
     vcol = lanes['valid'][:, None]
-    return (torch.where(vcol, status, MUT_SKIP).to(torch.int8),
-            torch.where(vcol, edits, 0),
-            torch.where(vcol, reason, RC_NONE).to(torch.int8))
+    status = torch.where(vcol, status, MUT_SKIP).to(torch.int8)
+    edits = torch.where(vcol, edits, 0)
+    reason = torch.where(vcol, reason, RC_NONE).to(torch.int8)
+    return torch.cat([edits.reshape(-1).view(torch.uint8),
+                      status.reshape(-1).view(torch.uint8),
+                      reason.reshape(-1).view(torch.uint8)])
 
 
 # ---------------------------------------------------------------------------

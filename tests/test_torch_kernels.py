@@ -2,9 +2,11 @@
 code they replace, on numpy-seeded inputs and the edge cases each must
 keep:
 
-* K1h ``fdet_select`` — the compact fail-detail select of the JAX
-  ``evaluate_packed`` (``keys = where(rel, col, C)``, per-row sort, first
-  k, clamped gather);
+* K1h ``fdet_select`` — the tail of the JAX ``evaluate_packed``: the
+  relevance of each fail-detail column (FAIL, matched, row valid, the
+  ``uniq_any`` children expanded), ``keys = where(rel, col, C)``, per-row
+  sort, first k, clamped gather, and the out8 concatenation; the match
+  and row-validity lanes read in place in wider packed buffers;
 * K1c ``wildcard_match`` — ``_View.wildcard_const`` of the JAX
   evaluator (glob DP over the byte window, Kleene verdict).
 
@@ -57,80 +59,209 @@ def jax_fdet_select(rel: np.ndarray, fdet_u: np.ndarray, k: int):
                                       axis=1))
 
 
-def _k1h_inputs(rows, cols, density, seed):
+def jax_tail(s_u, d_u, adm, fdet_u, match, rowvalid, uniq_any, k):
+    """The JAX evaluator's tail after the status trees
+    (kyverno_tpu/ops/eval.py evaluate_packed, :1789-1815): out8, out32."""
+    rel = (jnp.asarray(s_u) == 1) & (jnp.asarray(match) != 0)   # FAIL
+    if rowvalid is not None:
+        rel = rel & (jnp.asarray(rowvalid) != 0)[:, None]
+    parts = [rel] + [jnp.broadcast_to(rel[:, u:u + 1], (rel.shape[0], cnt))
+                     for u, cnt in uniq_any]
+    rel = parts[0] if len(parts) == 1 else jnp.concatenate(parts, axis=1)
+    out32 = jax_fdet_select(np.asarray(rel), fdet_u, k)
+    out8 = jnp.concatenate([jnp.asarray(s_u), jnp.asarray(d_u),
+                            jnp.asarray(adm)], axis=1)
+    return np.asarray(out8), out32
+
+
+def _k1h_inputs(rows, n_uniq, uniq_any, n_adm, density, seed,
+                rowvalid=False, wide=False):
+    """Seeded K1v outputs and lanes: ``density`` of the statuses FAIL;
+    ``match`` (nine in ten set) and, with ``rowvalid``, a row-validity
+    lane (one row in eight off) as the evaluator gets them — with
+    ``wide``, columns of wider packed buffers beside other lanes.
+    Returns the numpy arrays and the port's arguments."""
     rng = np.random.default_rng(seed)
-    rel = rng.random((rows, cols)) < density
+    s_u = np.where(rng.random((rows, n_uniq)) < density, 1,
+                   rng.choice(np.array([0, 2, 3, 4, 5]), (rows, n_uniq))
+                   ).astype(np.int8)
+    d_u = rng.integers(-2, 100, (rows, n_uniq)).astype(np.int8)
+    adm = rng.integers(0, 2, (rows, n_adm)).astype(np.int8)
+    cols = n_uniq + sum(cnt for _u, cnt in uniq_any)
     fdet = rng.integers(-3, 1 << 24, (rows, cols)).astype(np.int32)
-    return rel, fdet
+    match = (rng.random((rows, n_uniq)) < 0.9).astype(np.uint8)
+    mcol = 5 if wide else 0
+    mbuf = rng.integers(0, 256, (rows, mcol + n_uniq + (7 if wide else 0))
+                        ).astype(np.uint8)
+    mbuf[:, mcol:mcol + n_uniq] = match
+    rv = rv_lane = None
+    if rowvalid:
+        rv = (rng.random(rows) < 0.875).astype(np.int8)
+        rcol = 3 if wide else 0
+        rbuf = rng.integers(-5, 5, (rows, rcol + 1 + (4 if wide else 0))
+                            ).astype(np.int8)
+        rbuf[:, rcol] = rv
+        rv_lane = (torch.from_numpy(rbuf), rcol)
+    src = np.concatenate([np.arange(n_uniq)] + [
+        np.full(cnt, u) for u, cnt in uniq_any]).astype(np.int32)
+    args = (torch.from_numpy(s_u), torch.from_numpy(d_u),
+            torch.from_numpy(adm), torch.from_numpy(fdet),
+            (torch.from_numpy(mbuf), mcol), rv_lane, torch.from_numpy(src))
+    return (s_u, d_u, adm, fdet, match, rv), args
 
 
-@pytest.mark.parametrize('rows,cols,k,density', [
-    (64, 26, 26, 0.3),      # k == C (the smoke pack's width)
-    (64, 40, 32, 0.5),      # C > K: budget binds
-    (64, 10, 10, 0.0),      # no relevant column
-    (64, 32, 32, 1.0),      # exactly k relevant in every row
-    (64, 90, 32, 0.9),      # more than k relevant
-    (5, 1, 1, 0.5),         # one column
-    (3, 7, 0, 0.5),         # k == 0
-    (0, 5, 5, 0.5),         # no rows
-])
-def test_k1h_plain_matches_jax(rows, cols, k, density):
-    rel, fdet = _k1h_inputs(rows, cols, density, seed=rows * 31 + cols)
-    want = jax_fdet_select(rel, fdet, k)
-    got = kernels.fdet_select_plain(torch.from_numpy(rel),
-                                    torch.from_numpy(fdet), k)
-    assert got.dtype == torch.int32
-    assert np.array_equal(got.numpy(), want)
+K1H_CASES = [
+    # rows, unique trees, uniq_any, admission columns, budget, density,
+    # row-validity lane, lanes inside wider buffers
+    (64, 26, (), 0, 26, 0.3, False, False),    # k == C (the smoke pack)
+    (64, 40, (), 0, 32, 0.5, False, False),    # C > K: budget binds
+    (64, 10, (), 0, 10, 0.0, False, False),    # no relevant column
+    (64, 32, (), 0, 32, 1.0, False, False),    # k relevant in most rows
+    (64, 90, (), 0, 32, 0.9, False, False),    # more than k relevant
+    (5, 1, (), 0, 1, 0.5, False, False),       # one column
+    (3, 7, (), 0, 0, 0.5, False, False),       # k == 0
+    (0, 5, (), 0, 5, 0.5, False, False),       # no rows
+    (64, 12, ((3, 4), (7, 2)), 3, 32, 0.5, True, True),  # uniq_any, k == C
+    (64, 30, ((0, 5),), 2, 32, 0.9, True, True),  # rows over the budget
+    (50, 8, ((2, 3),), 0, 4, 0.6, False, True),   # k < C, no rowvalid
+    (40, 20, (), 5, 32, 0.7, True, False),        # rowvalid, packed alone
+]
+
+
+@pytest.mark.parametrize('rows,n_uniq,uniq_any,n_adm,budget,density,'
+                         'rowvalid,wide', K1H_CASES)
+def test_k1h_plain_matches_jax(rows, n_uniq, uniq_any, n_adm, budget,
+                               density, rowvalid, wide):
+    (s_u, d_u, adm, fdet, match, rv), args = _k1h_inputs(
+        rows, n_uniq, uniq_any, n_adm, density, seed=rows * 31 + n_uniq,
+        rowvalid=rowvalid, wide=wide)
+    k = min(budget, fdet.shape[1])
+    want8, want32 = jax_tail(s_u, d_u, adm, fdet, match, rv, uniq_any, k)
+    out = kernels.fdet_select_plain(*args, k)
+    assert out.dtype == torch.int8
+    assert tuple(out.shape) == (rows, kernels.fdet_row_bytes(
+        want8.shape[1], k)[0])
+    got8, got32 = kernels.fdet_views(out, want8.shape[1], k)
+    assert got8.dtype == torch.int8 and got32.dtype == torch.int32
+    assert np.array_equal(got8.numpy(), want8)
+    assert np.array_equal(got32.numpy(), want32)
+    # the host copy splits the same way
+    host8, host32 = kernels.fdet_views(out.numpy(), want8.shape[1], k)
+    assert np.array_equal(host8, want8) and np.array_equal(host32, want32)
 
 
 def test_k1h_zero_columns():
-    rel = np.zeros((4, 0), bool)
-    fdet = np.zeros((4, 0), np.int32)
-    got = kernels.fdet_select(torch.from_numpy(rel), torch.from_numpy(fdet),
-                              0)
-    assert tuple(got.shape) == (4, 0)
-    assert jax_fdet_select(rel, fdet, 0).shape == (4, 0)
+    _np, args = _k1h_inputs(4, 0, (), 0, 0.5, seed=0)
+    out = kernels.fdet_select(*args, 0)
+    assert tuple(out.shape) == (4, 0)
+    got8, got32 = kernels.fdet_views(out, 0, 0)
+    assert tuple(got8.shape) == (4, 0) and tuple(got32.shape) == (4, 0)
+    assert jax_fdet_select(np.zeros((4, 0), bool), np.zeros((4, 0), np.int32),
+                           0).shape == (4, 0)
 
 
 def test_k1h_library_yardstick_matches():
-    rel, fdet = _k1h_inputs(50, 40, 0.4, seed=3)
-    a = kernels.fdet_select_library(torch.from_numpy(rel),
-                                    torch.from_numpy(fdet), 32)
-    assert np.array_equal(a.numpy(), jax_fdet_select(rel, fdet, 32))
+    _np, args = _k1h_inputs(50, 30, ((4, 6),), 2, 0.4, seed=3,
+                            rowvalid=True, wide=True)
+    assert torch.equal(kernels.fdet_select_library(*args, 32),
+                       kernels.fdet_select_plain(*args, 32))
 
 
 def test_k1h_cpu_wrapper_takes_plain_and_counts_nothing():
     kernels.reset_launches()
-    rel, fdet = _k1h_inputs(20, 12, 0.5, seed=9)
-    got = kernels.fdet_select(torch.from_numpy(rel), torch.from_numpy(fdet),
-                              12)
-    want = kernels.fdet_select_plain(torch.from_numpy(rel),
-                                     torch.from_numpy(fdet), 12)
-    assert torch.equal(got, want)
+    _np, args = _k1h_inputs(20, 12, ((1, 2),), 1, 0.5, seed=9,
+                            rowvalid=True, wide=True)
+    got = kernels.fdet_select(*args, 12)
+    assert torch.equal(got, kernels.fdet_select_plain(*args, 12))
     assert kernels.LAUNCHES['k1h_fdet_select'] == 0
 
 
-def test_k1h_wrapper_checks():
-    rel, fdet = _k1h_inputs(4, 6, 0.5, seed=1)
+@pytest.mark.parametrize('fault', ['fdet_dtype', 'k_past_c', 'match_cols',
+                                   'match_rows', 'match_stride', 'src_dtype',
+                                   'src_len', 'd_u_shape', 'rowvalid_col',
+                                   'adm_rows'])
+def test_k1h_wrapper_checks(fault):
+    _np, args = _k1h_inputs(4, 6, ((2, 1),), 1, 0.5, seed=1, rowvalid=True,
+                            wide=True)
+    s_u, d_u, adm, fdet, (mbuf, mcol), (rbuf, rcol), src = args
+    k = 4
+    if fault == 'fdet_dtype':
+        fdet = fdet.long()
+    elif fault == 'k_past_c':
+        k = 8
+    elif fault == 'match_cols':
+        mcol = mbuf.shape[1] - 5
+    elif fault == 'match_rows':
+        mbuf = mbuf[:-1]
+    elif fault == 'match_stride':
+        mbuf = mbuf.t().contiguous().t()
+    elif fault == 'src_dtype':
+        src = src.long()
+    elif fault == 'src_len':
+        src = src[:-1]
+    elif fault == 'd_u_shape':
+        d_u = d_u[:, :-1]
+    elif fault == 'rowvalid_col':
+        rcol = rbuf.shape[1]
+    elif fault == 'adm_rows':
+        adm = adm[:-1]
     with pytest.raises(ValueError):
-        kernels.fdet_select(torch.from_numpy(rel),
-                            torch.from_numpy(fdet).long(), 4)
-    with pytest.raises(ValueError):
-        kernels.fdet_select(torch.from_numpy(rel), torch.from_numpy(fdet), 7)
+        kernels.fdet_select(s_u, d_u, adm, fdet, (mbuf, mcol), (rbuf, rcol),
+                            src, k)
 
 
 @pytest.mark.cuda
-def test_k1h_cuda_kernel_matches_plain(cuda):
-    for rows, cols, k, density in [(16384, 26, 26, 0.3), (999, 70, 32, 0.6),
-                                   (31, 1, 1, 0.5), (40, 33, 32, 1.0)]:
-        rel, fdet = _k1h_inputs(rows, cols, density, seed=cols)
-        rel_t, fd_t = torch.from_numpy(rel), torch.from_numpy(fdet)
-        before = kernels.LAUNCHES['k1h_fdet_select']
-        got = kernels.fdet_select(rel_t.to(cuda), fd_t.to(cuda), k)
-        torch.cuda.synchronize()
-        assert kernels.LAUNCHES['k1h_fdet_select'] == before + 1
-        assert torch.equal(got.cpu(), kernels.fdet_select_plain(rel_t, fd_t,
-                                                                k))
+@pytest.mark.parametrize('rows,n_uniq,uniq_any,n_adm,budget,density,'
+                         'rowvalid,wide', K1H_CASES + [
+                             (16384, 13, (), 0, 32, 0.3, True, True),
+                             (999, 60, ((1, 9), (50, 4)), 3, 32, 0.6, True,
+                              True),
+                             (31, 1, (), 0, 1, 0.5, False, False)])
+def test_k1h_cuda_kernel_matches_plain(rows, n_uniq, uniq_any, n_adm, budget,
+                                       density, rowvalid, wide, cuda):
+    _np, args = _k1h_inputs(rows, n_uniq, uniq_any, n_adm, density,
+                            seed=n_uniq, rowvalid=rowvalid, wide=wide)
+    k = min(budget, args[3].shape[1])
+    card = [a if a is None else (a[0].to(cuda), a[1])
+            if isinstance(a, tuple) else a.to(cuda) for a in args]
+    before = kernels.LAUNCHES['k1h_fdet_select']
+    got = kernels.fdet_select(*card, k)
+    torch.cuda.synchronize()
+    want = kernels.fdet_select_plain(*args, k)
+    launched = rows > 0 and want.shape[1] > 0
+    assert kernels.LAUNCHES['k1h_fdet_select'] == before + launched
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', ['compiler', 'conditions', 'foreach', 'pss',
+                                  'smoke', 'wildcard_keys'])
+def test_k1_call_on_the_card_equals_the_cpu_evaluator(name, cuda):
+    """One K1 call on the card — K1v, then K1h reading the match and
+    row-validity lanes inside their packed buffers (``conditions`` has
+    ``uniq_any`` columns) — against the same evaluator on the CPU: out8
+    and out32 byte-equal, one launch of each kernel, one copy back."""
+    from test_torch_reference import load_pack, make_resources
+    from kyverno_tpu_torch.compiler.compile import compile_policies
+    from kyverno_tpu_torch.compiler.encode import encode_batch
+    from kyverno_tpu_torch.ops.eval import build_evaluator, shard_batch
+    _jp, tp = load_pack(name)
+    tc = compile_policies(tp)
+    host_ev, card_ev = build_evaluator(tc, 'cpu'), build_evaluator(tc, cuda)
+    tensors = dict(encode_batch(make_resources(name, 300), tc,
+                                padded_n=320).tensors())
+    tensors['__match__'] = (np.random.default_rng(0).random(
+        (320, host_ev.n_uniq)) < 0.8).astype(np.uint8)
+    want8, want32 = host_ev(*shard_batch(tensors, 'cpu'))
+    before = dict(kernels.LAUNCHES)
+    got = card_ev(*shard_batch(tensors, cuda))
+    got8, got32 = got.host()
+    assert kernels.LAUNCHES['k1_vm'] == before['k1_vm'] + 1
+    assert kernels.LAUNCHES['k1h_fdet_select'] == \
+        before['k1h_fdet_select'] + 1
+    assert np.array_equal(got8, want8.numpy())
+    assert np.array_equal(got32, want32.numpy())
+    assert np.array_equal(got[0].cpu().numpy(), got8)
 
 
 # ---------------------------------------------------------------------------
@@ -261,32 +392,43 @@ def test_k1c_cuda_kernel_matches_plain(cuda):
 
 
 @pytest.mark.cuda
-def test_k3_cuda_kernel_matches_plain(cuda):
+@pytest.mark.parametrize('counts,w,rows', [
+    ([32, 1, 32, 5, 32, 0, 17, 32], 8, 1000),    # S > 32: blocks span rules
+    ([32, 1, 32, 5, 32, 0, 17, 32], 256, 1000),  # 16-byte window loads
+    ([32] * 8, 256, 333),                         # bit 31 in every rule
+    ([2, 3, 1], 8, 16384),                        # the mutate pack's shape
+    ([1] * 7000, 8, 50),       # past 48 KB of per-(row, rule) words
+])
+def test_k3_cuda_kernel_matches_plain(counts, w, rows, cuda):
     from types import SimpleNamespace
     from kyverno_tpu_torch.mutate.kernel import MutateKernel
     from test_torch_mutate import random_lanes, random_program
-    counts = [32, 1, 32, 5, 32, 0, 17, 32]
-    for w in (8, 256):
-        prog = random_program(np.random.default_rng(w), 8, counts, w)
-        host = MutateKernel(prog, 'cpu')
-        card = MutateKernel(prog, cuda)
-        lanes = random_lanes(np.random.default_rng(w + 1), host, 1000)
-        want = kernels.k3_mutate_plain(host.stage(lanes),
-                                       host.site_tensors())
-        before = kernels.LAUNCHES['k3_mutate']
-        got = kernels.k3_mutate(card.stage(lanes), card.site_tensors())
-        torch.cuda.synchronize()
-        assert kernels.LAUNCHES['k3_mutate'] == before + 1
-        for g, wt in zip(got, want):
-            assert torch.equal(g.cpu(), wt), w
+    prog = random_program(np.random.default_rng(w), len(counts), counts, w)
+    host = MutateKernel(prog, 'cpu')
+    card = MutateKernel(prog, cuda)
+    lanes = random_lanes(np.random.default_rng(w + 1), host, rows)
+    want = kernels.k3_mutate_plain(host.stage(lanes), host.site_tensors())
+    before = kernels.LAUNCHES['k3_mutate']
+    got = kernels.k3_mutate(card.stage(lanes), card.site_tensors(),
+                            card.bounds)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['k3_mutate'] == before + 1
+    assert torch.equal(got.cpu(), want)
+    # and through the kernel object: one copy each way
+    for g, wt in zip(card(lanes), host(lanes)):
+        assert np.array_equal(g, wt)
+    # a card rule_start without its host bounds is refused
+    with pytest.raises(ValueError, match='host bounds'):
+        kernels.k3_mutate(card.stage(lanes), card.site_tensors())
     # no sites: zeros, and no launch
     empty = MutateKernel(SimpleNamespace(programs=[
         SimpleNamespace(sites=[])]), cuda)
     lanes = random_lanes(np.random.default_rng(0), empty, 5)
     before = kernels.LAUNCHES['k3_mutate']
-    got = kernels.k3_mutate(empty.stage(lanes), empty.site_tensors())
+    got = kernels.k3_mutate(empty.stage(lanes), empty.site_tensors(),
+                            empty.bounds)
     assert kernels.LAUNCHES['k3_mutate'] == before
-    assert all(not o.any() for o in got)
+    assert not got.any()
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,14 @@ JAX package's, and both against the host engine's mutate chain.
   kernel's (the state carried across).
 * The port's ``MutateScanner`` (on the CPU) against the JAX one and the
   host chain, on the mutate pack over 256 seeded Pods.
-* The wrapper takes the plain version for CPU tensors, counts no
-  launch, and checks its inputs.
+* The lanes staged in one buffer (``kernels.k3_pack``: each lane at an
+  aligned offset) unpack to themselves, and the plain version over that
+  buffer equals the JAX kernel on 8 rules of 32 sites with a 256-byte
+  window and 10 % padding rows.
+* ``MutateKernel`` refuses a bad ``rule_start`` when it builds its
+  tables; the wrapper takes the plain version for CPU tensors, counts
+  no launch, checks its inputs, and refuses a card ``rule_start``
+  without its host bounds.
 
 The JAX kernel runs under ``x64_shim`` (``tests/test_torch_reference.py``),
 scoped to each call.
@@ -232,7 +238,53 @@ def test_no_sites_returns_zeros():
     # the wrapper's plain version gives the same zeros
     t = MutateKernel(prog, 'cpu')
     plain = kernels.k3_mutate_plain(t.stage(lanes), t.site_tensors())
-    assert_outputs_equal([o.numpy() for o in plain], got)
+    assert_outputs_equal([o.numpy() for o in kernels.k3_outputs(
+        plain, 9, 2)], got)
+
+
+def test_staged_buffer_unpacks_to_the_lanes():
+    kernel = MutateKernel(random_program(np.random.default_rng(6), 3,
+                                         [5, 32, 2], 24), 'cpu')
+    lanes = random_lanes(np.random.default_rng(7), kernel, 37)
+    buf, layout = kernels.k3_pack(lanes)
+    assert buf.dtype == torch.uint8 and buf.numel() == layout.nbytes
+    for (name, _dt), off in zip(kernels._K3_LANES, layout.offsets):
+        assert off % (16 if name == 'sbytes' else 8) == 0, name
+    back = kernels.k3_unpack(buf, layout)
+    assert set(back) == set(lanes)
+    for name, lane in lanes.items():
+        np.testing.assert_array_equal(back[name].numpy(), lane,
+                                      err_msg=name)
+        assert back[name].numpy().dtype == lane.dtype, name
+
+
+def test_packed_plain_matches_jax_8_rules_of_32_sites():
+    """The plain version over the staged buffer against the JAX kernel:
+    8 rules of 32 sites (bit 31 in every mask), a 256-byte window, 10 %
+    padding rows, fault rates low enough that SKIP, PASS and FALLBACK
+    all occur."""
+    rng = np.random.default_rng(11)
+    prog = random_program(rng, 8, [32] * 8, 256)
+    kernel = MutateKernel(prog, 'cpu')
+    assert kernel.width == 256 and kernel.n_sites == 256
+    lanes = random_lanes(np.random.default_rng(12), kernel, 120)
+    lanes['istate'] = rng.choice(np.array([0] * 97 + [1, 1, 2], np.int8),
+                                 lanes['istate'].shape)
+    lanes['milli_ok'] = rng.random(lanes['milli_ok'].shape) < 0.99
+    for k in range(kernel.n_sites):
+        prog.programs[k // 32].sites[k % 32] = prog.programs[
+            k // 32].sites[k % 32]._replace(
+                replace=prog.programs[k // 32].sites[k % 32].replace and
+                rng.random() < 0.05)
+    kernel = MutateKernel(prog, 'cpu')
+    out = kernels.k3_mutate_plain(kernels.k3_pack(lanes),
+                                  kernel.site_tensors(), kernel.bounds)
+    got = [o.numpy() for o in kernels.k3_outputs(out, 120, 8)]
+    assert_outputs_equal(got, jax_kernel_out(prog, lanes))
+    status, edits, _reason = got
+    assert {MUT_SKIP, MUT_PASS, MUT_FALLBACK} <= set(np.unique(status))
+    assert ((edits >> 31) & 1).any()
+    assert not status[~lanes['valid']].any()
 
 
 # ---------------------------------------------------------------------------
@@ -302,10 +354,15 @@ def test_scanner_raises_without_cuda(monkeypatch):
 # the wrapper
 
 
-def _small():
+def _small_lanes():
     prog = random_program(np.random.default_rng(2), 2, [4, 3], 8)
     k = MutateKernel(prog, 'cpu')
-    return k, k.stage(random_lanes(np.random.default_rng(4), k, 6))
+    return k, random_lanes(np.random.default_rng(4), k, 6)
+
+
+def _small():
+    k, lanes = _small_lanes()
+    return k, k.stage(lanes)
 
 
 def test_cpu_wrapper_takes_plain_and_counts_nothing():
@@ -313,42 +370,78 @@ def test_cpu_wrapper_takes_plain_and_counts_nothing():
     kernels.reset_launches()
     got = kernels.k3_mutate(lanes, k.site_tensors())
     want = kernels.k3_mutate_plain(lanes, k.site_tensors())
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    assert got.dtype == torch.uint8 and got.numel() == 6 * 2 * 10
+    assert torch.equal(got, want)
+    assert torch.equal(kernels.k3_mutate(lanes, k.site_tensors(), k.bounds),
+                       want)
     assert kernels.LAUNCHES['k3_mutate'] == 0
+
+
+@pytest.mark.parametrize('counts', [[17, 16, 0], [33], [1, 40, 0]])
+def test_kernel_refuses_a_bad_rule_start_at_construction(counts):
+    # one bit of the rule's 32-bit mask per site: a rule of 33 sites is
+    # refused when the tables are built, not on a call
+    prog = random_program(np.random.default_rng(2), len(counts), counts, 8)
+    if max(counts) <= 32:
+        MutateKernel(prog, 'cpu')
+        return
+    with pytest.raises(ValueError, match='rule_start'):
+        MutateKernel(prog, 'cpu')
 
 
 @pytest.mark.parametrize('fault', ['tag_dtype', 'milli_shape', 'sbytes_rank',
                                    'valid_len', 't_bytes_width',
                                    'rule_start_dtype', 'mixed_devices',
-                                   'rule_over_32_sites', 'rule_start_short'])
+                                   'rule_over_32_sites', 'rule_start_short',
+                                   'buffer_short', 'buffer_dtype',
+                                   'layout_mismatch', 'site_slot_shape',
+                                   'card_rule_start_without_bounds',
+                                   'bounds_length'])
 def test_wrapper_checks(fault):
-    k, lanes = _small()
-    if fault == 'rule_over_32_sites':
-        # one warp lane per site: a rule of 33 sites is refused
-        k = MutateKernel(random_program(np.random.default_rng(2), 2,
-                                        [17, 16], 8), 'cpu')
-        lanes = k.stage(random_lanes(np.random.default_rng(4), k, 6))
+    k, raw = _small_lanes()
+    raw = dict(raw)
+    bad_lane = {'tag_dtype': ('tag', lambda a: a.astype(np.int32)),
+                'milli_shape': ('milli', lambda a: a[:, :-1]),
+                'sbytes_rank': ('sbytes', lambda a: a[:, :, 0]),
+                'valid_len': ('valid', lambda a: a[:-1])}.get(fault)
+    if bad_lane is not None:
+        # the lanes are checked where they are staged
+        name, change = bad_lane
+        raw[name] = change(raw[name])
+        with pytest.raises(ValueError):
+            k.stage(raw)
+        return
+    buf, layout = k.stage(raw)
     sites = dict(k.site_tensors())
-    lanes = dict(lanes)
+    bounds = None
     if fault == 'rule_over_32_sites':
         sites['rule_start'] = torch.tensor([0, 33, 33], dtype=torch.int32)
+        layout = kernels.k3_layout(6, 33, 8)
+        buf = torch.zeros(layout.nbytes, dtype=torch.uint8)
+        kk = MutateKernel(random_program(np.random.default_rng(2), 2,
+                                         [17, 16], 8), 'cpu')
+        sites = dict(kk.site_tensors(), rule_start=sites['rule_start'])
     elif fault == 'rule_start_short':
         sites['rule_start'] = sites['rule_start'].clone()
         sites['rule_start'][-1] -= 1
-    elif fault == 'tag_dtype':
-        lanes['tag'] = lanes['tag'].to(torch.int32)
-    elif fault == 'milli_shape':
-        lanes['milli'] = lanes['milli'][:, :-1]
-    elif fault == 'sbytes_rank':
-        lanes['sbytes'] = lanes['sbytes'][:, :, 0]
-    elif fault == 'valid_len':
-        lanes['valid'] = lanes['valid'][:-1]
     elif fault == 't_bytes_width':
         sites['t_bytes'] = torch.zeros((k.n_sites, 16), dtype=torch.uint8)
     elif fault == 'rule_start_dtype':
         sites['rule_start'] = sites['rule_start'].long()
     elif fault == 'mixed_devices':
-        lanes['tag'] = lanes['tag'].to('meta')
+        buf = buf.to('meta')
+    elif fault == 'buffer_short':
+        buf = buf[:-1]
+    elif fault == 'buffer_dtype':
+        buf = buf.view(torch.int8)
+    elif fault == 'layout_mismatch':
+        layout = layout._replace(offsets=layout.offsets[::-1])
+    elif fault == 'site_slot_shape':
+        sites['site_slot'] = sites['site_slot'][:-1]
+    elif fault == 'card_rule_start_without_bounds':
+        # a rule_start that is not on the host is never read back
+        sites['rule_start'] = sites['rule_start'].to('meta')
+    elif fault == 'bounds_length':
+        bounds = k.bounds[:-1]
     with pytest.raises(ValueError):
-        kernels.k3_mutate(lanes, sites)
+        kernels.k3_mutate((buf, layout), sites, bounds)
