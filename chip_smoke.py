@@ -354,6 +354,12 @@ def first_chunk_inputs(scanner, pods, device, adm_rows=None):
 def _clone(a):
     import torch
     if isinstance(a, torch.Tensor):
+        if a.dim() == 1 and a.stride(0) > 1:
+            # a lane inside its packed buffer (K4h's row mask): the copy
+            # keeps its row stride, as the kernel reads it
+            out = torch.empty_strided(a.shape, a.stride(), dtype=a.dtype,
+                                      device=a.device)
+            return out.copy_(a)
         return a.clone()
     if isinstance(a, dict):
         return {k: _clone(v) for k, v in a.items()}
@@ -954,7 +960,8 @@ def kernel_phase(seen, device, seed):
             for i in range(2)]
     real_pattern = [k1c_calls[0][3]] if k1c_calls else []
     k1c = measure_k1c(k1c_calls, device, extra=extra, patterns=real_pattern + [
-        b'*', b'?*', b'a?b*', b'*latest', b'?\xc3*', b'*:*:*', b''])
+        b'*', b'?*', b'a?b*', b'*latest', b'?\xc3*', b'*:*:*', b'',
+        b'*a*b*:*x?*', b'ab*?:*latest*a', b'?' * 64 + b'*', b'a' * 70])
     for name, rec in (('K1v', k1v), ('K1h', k1h), ('K1c', k1c)):
         if rec['max_abs_err']:
             raise AssertionError(f'{name} differs from its plain version: '
@@ -1087,16 +1094,25 @@ def _k4_bound(statuses, rowvalid, n_codes: int):
         'bytes' if t_bytes >= t_ops else 'operations'
 
 
-def _random_k4(seed: int, device):
-    """K4h's random case: codes drawn from [-2, 8), 10 % rows invalid."""
+def _random_k4(seed: int, device, shape=K4_RANDOM, lo: int = -2,
+               hi: int = 8):
+    """K4h's random case: codes drawn from [lo, hi), 10 % rows invalid."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
-    r, p = K4_RANDOM
-    statuses = rng.integers(-2, 8, (r, p)).astype(np.int8)
+    r, p = shape
+    statuses = rng.integers(lo, hi, (r, p)).astype(np.int8)
     rowvalid = (rng.random(r) >= 0.1).astype(np.uint8)
     return (torch.from_numpy(statuses).to(device),
             torch.from_numpy(rowvalid).to(device))
+
+
+#: K4h's edge shapes (rows, programs, codes from, to): one program, more
+#: programs than one column tile, one row, rows that fill no tile, and
+#: 16 x 256 + 1 rows of a single code
+K4_EDGES = {'p_1': (1000, 1, -2, 8), 'p_4097': (1000, 4097, -2, 8),
+            'rows_1': (1, 13, 0, 6), 'rows_ragged': (16383, 256, -2, 8),
+            'one_code': (16 * 256 + 1, 13, 2, 3)}
 
 
 def measure_k4(statuses, rowvalid, n_codes: int, device) -> dict:
@@ -1125,8 +1141,10 @@ def measure_k4(statuses, rowvalid, n_codes: int, device) -> dict:
 
 def k4_phase(calls, device, seed) -> dict:
     """K4h against its plain version on the card: every call a step
-    made (the first is timed), the random case, and P = 0 and R = 0,
-    which must not launch.  Returns the kernel's record."""
+    made (the first is timed; its row mask is the step's lane inside
+    its packed buffer), the random case, P = 0 and R = 0, which must not
+    launch, and the edge shapes of ``K4_EDGES``.  Returns the kernel's
+    record."""
     import torch
     from kyverno_tpu_torch.compiler.ir import N_STATUS_CODES
     from kyverno_tpu_torch.ops import kernels
@@ -1152,6 +1170,13 @@ def k4_phase(calls, device, seed) -> dict:
     if kernels.LAUNCHES['k4_status_hist'] != before:
         raise AssertionError('K4h launched on an empty shape')
     cases['empty'] = {'max_abs_err': max(empty.values()), 'cases': empty}
+    edges = {}
+    for i, (name, (r, p, lo, hi)) in enumerate(K4_EDGES.items()):
+        args = _random_k4(seed + i, device, (r, p), lo, hi) + \
+            (N_STATUS_CODES,)
+        edges[name] = _max_abs_err(kernels.status_histogram(*args),
+                                   kernels.status_histogram_plain(*args))
+    cases['edges'] = {'max_abs_err': max(edges.values()), 'cases': edges}
     worst = max(c['max_abs_err'] for c in cases.values())
     if worst:
         raise AssertionError(f'K4h differs from its plain version: '

@@ -251,23 +251,15 @@ K1VM_HD uint8_t k1vm_reduce(uint8_t acc, uint8_t v, int red) {
                   : (red == 1 ? k1vm_or(acc, v) : static_cast<uint8_t>(acc | v));
 }
 
-// K1c's verdict on the glob DP (k1c_wildcard.cu)
+// K1c's verdict on the glob DP (glob_dp.cuh): the window's first vlen
+// bytes as words, then the compiled pattern prog[0..plen) (ops/vm.py
+// lowers it once, ops/kernels.py glob_program)
 K1VM_HD uint8_t k1vm_glob(const unsigned char* head, int w, int64_t slen,
-                          int tag, const unsigned char* pat, int plen) {
-  unsigned char hb[GLOB_DP_MAX_W];
-#pragma unroll
-  for (int j = 0; j < GLOB_DP_MAX_W; ++j) hb[j] = j < w ? head[j] : 0;
-  const int vlen = slen < w ? static_cast<int>(slen) : w;
-  const bool matched = glob_dp_match(hb, w, vlen, pat, plen);
-  bool has_q = false;
-  for (int p = 0; p < plen; ++p) has_q |= pat[p] == '?';
-  const bool ascii_ok = !has_q || glob_ascii_ok(hb, vlen);
-  const bool conv = tag >= 0 && tag < 32 && ((K1VM_CONV_TAGS >> tag) & 1u);
-  const bool arrayish = tag == K1VM_TAG_ARRAY;
-  const bool decid = slen <= w && ascii_ok;
-  const bool t = conv && decid && matched;
-  const bool f = !arrayish && (!conv || (decid && !matched));
-  return static_cast<uint8_t>((t ? 1 : 0) | (f ? 2 : 0));
+                          int tag, const unsigned char* prog, int plen) {
+  uint32_t words[GLOB_DP_WORDS];
+  glob_load(head, slen < w ? static_cast<int>(slen) : w, words);
+  return glob_kleene(words, w, slen, tag, K1VM_CONV_TAGS, K1VM_TAG_ARRAY,
+                     prog, plen);
 }
 
 // The eager walk's _suspicious_scalar, less its has_wild term: a '-' in

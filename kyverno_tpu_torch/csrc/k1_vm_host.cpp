@@ -11,6 +11,7 @@
 //
 // and call k1_vm_host with the arguments of k1_vm.cu's k1_vm (all host
 // memory, no staging size and no stream; executed may be null).
+// k1_glob_host runs K1_GLOB's verdict alone over a batch of values.
 
 #include <cstdint>
 #include <vector>
@@ -69,4 +70,15 @@ extern "C" void k1_vm_fold_host(const int8_t* s, const int8_t* d,
   *out_s = out.s;
   *out_d = out.d;
   *out_fd = out.fd;
+}
+
+// K1v's GLOB verdict (k1vm_glob, the glob DP of glob_dp.cuh) over n
+// values, for the tests: head uint8 [n, w], str_len int32 [n], tag int8
+// [n], the compiled pattern prog[0..plen); out[i] = t | f << 1.
+extern "C" void k1_glob_host(const unsigned char* head, int w,
+                             const int32_t* str_len, const int8_t* tag,
+                             long long n, const unsigned char* prog,
+                             int plen, uint8_t* out) {
+  for (long long i = 0; i < n; ++i)
+    out[i] = k1vm_glob(head + i * w, w, str_len[i], tag[i], prog, plen);
 }

@@ -51,8 +51,8 @@ KERNELS: Dict[str, tuple] = {
         _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_uint, ctypes.c_int, ctypes.c_int, _P)),
     'k4_status_hist': ('k4_status_hist', (
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p)),
+        _P, ctypes.c_longlong, _P, ctypes.c_longlong, _P, _P,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P)),
 }
 
 _lock = threading.Lock()

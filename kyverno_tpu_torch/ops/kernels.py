@@ -17,7 +17,8 @@ built by ``ops/_build.py``):
   their fail details, and its out8 row, into one allocation;
 * K1c ``wildcard_match`` — the glob DP of ``_View.wildcard_const`` and
   its Kleene verdict (the eager walk's; inside K1v the same DP runs
-  from ``csrc/glob_dp.cuh``);
+  from ``csrc/glob_dp.cuh``, over the pattern ``glob_program``
+  compiles);
 * K3 ``k3_mutate`` — per (resource, rule) of a lowered mutate set: the
   edit bitmask, the status and the first-fault reason, from the lanes
   staged in one buffer into one output buffer;
@@ -36,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -365,6 +367,40 @@ def fdet_select_library(s_u: torch.Tensor, d_u: torch.Tensor,
 # ---------------------------------------------------------------------------
 # K1c: glob match against the byte window
 
+#: the compiled pattern's flags byte: the pattern holds a '?'
+#: (``csrc/glob_dp.cuh`` GLOB_HAS_Q), and its star token (GLOB_STAR)
+GLOB_HAS_Q = 1
+GLOB_STAR = 0
+#: longest run token: a run's length is one byte
+_GLOB_RUN_MAX = 255
+
+
+def glob_program(pattern: bytes) -> bytes:
+    """``pattern`` compiled for the glob DP of ``csrc/glob_dp.cuh``
+    (K1c's kernel and K1v's ``GLOB``): a flags byte (``GLOB_HAS_Q``),
+    then one token per run of ``'*'`` (``GLOB_STAR``: ``'**'`` matches as
+    ``'*'``) and, for each run of other bytes, its length (1-255; a
+    longer run is split) and the bytes, ``'?'`` among them matching any
+    byte.  The DP then takes a run in one step and knows ``has_q``
+    without reading the pattern per value."""
+    out = bytearray([GLOB_HAS_Q if b'?' in pattern else 0])
+    i, n = 0, len(pattern)
+    star = ord('*')
+    while i < n:
+        if pattern[i] == star:
+            while i < n and pattern[i] == star:
+                i += 1
+            out.append(GLOB_STAR)
+            continue
+        j = i
+        while j < n and pattern[j] != star and j - i < _GLOB_RUN_MAX:
+            j += 1
+        out.append(j - i)
+        out += pattern[i:j]
+        i = j
+    return bytes(out)
+
+
 def wildcard_match(head: torch.Tensor, str_len: torch.Tensor,
                    tag: torch.Tensor, pattern: bytes
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -396,10 +432,11 @@ def wildcard_match(head: torch.Tensor, str_len: torch.Tensor,
     conv_bits = 0
     for tg in _CONV_TAGS:
         conv_bits |= 1 << tg
+    prog = glob_program(pattern)
     with torch.cuda.device(head.device):
         rc = lib.k1c_wildcard(head.data_ptr(), str_len.data_ptr(),
                               tag.data_ptr(), t.data_ptr(), f.data_ptr(),
-                              n, w, pattern, len(pattern), conv_bits,
+                              n, w, prog, len(prog), conv_bits,
                               TAG_ARRAY, _stream(head))
     if rc != 0:
         raise RuntimeError(f'k1c_wildcard launch failed: CUDA error {rc}')
@@ -717,49 +754,74 @@ def k3_mutate_plain(lanes: Tuple[torch.Tensor, K3Layout],
 # ---------------------------------------------------------------------------
 # K4h: the per-rule verdict histogram of the sharded scan step
 
-#: status codes the K4h kernel's shared-memory histogram can hold
+#: status codes the K4h kernel takes (its shared-memory histogram's, past
+#: the register counters' 8)
 K4_MAX_CODES = 12288
+
+#: per (device index, stream): K4h's zeroed uint64 workspace (a ticket,
+#: then the accumulator), which each launch leaves zero again; one per
+#: stream, since launches on two streams may overlap
+_K4_WORKSPACE: Dict[Tuple[int, int], torch.Tensor] = {}
+_K4_LOCK = threading.Lock()
 
 
 def _k4_check(statuses: torch.Tensor, rowvalid: Optional[torch.Tensor],
               n_codes: int) -> None:
     _check(statuses.dim() == 2 and statuses.dtype == torch.int8,
-           f'statuses must be a 2-D int8 tensor, got {statuses.dtype} '
-           f'{tuple(statuses.shape)}')
+           lambda: f'statuses must be a 2-D int8 tensor, got '
+           f'{statuses.dtype} {tuple(statuses.shape)}')
+    _check(statuses.numel() == 0 or statuses.shape[1] == 1 or
+           statuses.stride(1) == 1, 'statuses must have unit column stride')
     if rowvalid is not None:
         _check(rowvalid.dtype == torch.uint8 and
                tuple(rowvalid.shape) == (statuses.shape[0],),
-               f'rowvalid must be uint8 [{statuses.shape[0]}], got '
+               lambda: f'rowvalid must be uint8 [{statuses.shape[0]}], got '
                f'{rowvalid.dtype} {tuple(rowvalid.shape)}')
     _check(1 <= n_codes <= K4_MAX_CODES,
-           f'n_codes={n_codes} outside [1, {K4_MAX_CODES}]')
+           lambda: f'n_codes={n_codes} outside [1, {K4_MAX_CODES}]')
+
+
+def _k4_workspace(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    # at least n zero uint64 words for launches on ``stream``; grown
+    # (a new zeroed tensor, on that stream) when a call needs more
+    key = (dev.index, stream)
+    with _K4_LOCK:
+        ws = _K4_WORKSPACE.get(key)
+        if ws is None or ws.numel() < n:
+            size = n if ws is None else max(n, 2 * ws.numel())
+            ws = _K4_WORKSPACE[key] = torch.zeros(size, dtype=torch.int64,
+                                                  device=dev)
+    return ws
 
 
 def status_histogram(statuses: torch.Tensor,
                      rowvalid: Optional[torch.Tensor], n_codes: int
                      ) -> torch.Tensor:
     """``[P, n_codes]`` int64: per program column p and code c, the rows
-    of ``statuses`` (int8 ``[R, P]``) holding c whose ``rowvalid``
-    (uint8 ``[R]``; None for no mask) is non-zero.  A code outside
-    ``[0, n_codes)`` counts nowhere."""
+    of ``statuses`` (int8 ``[R, P]``, unit column stride, any row
+    stride) holding c whose ``rowvalid`` (uint8 ``[R]``, any stride: a
+    lane inside its packed buffer; None for no mask) is non-zero.  A
+    code outside ``[0, n_codes)`` counts nowhere.  Neither tensor is
+    copied: the kernel reads each as a pointer and a row stride."""
     _k4_check(statuses, rowvalid, n_codes)
     ts = (statuses,) if rowvalid is None else (statuses, rowvalid)
     if _on_cpu(*ts):
         return status_histogram_plain(statuses, rowvalid, n_codes)
-    _check(all(t.is_contiguous() for t in ts),
-           'status_histogram takes contiguous tensors')
     r, p = statuses.shape
-    out = torch.zeros((p, n_codes), dtype=torch.int64,
-                      device=statuses.device)
+    dev = statuses.device
     if r == 0 or p == 0:
-        return out
+        return torch.zeros((p, n_codes), dtype=torch.int64, device=dev)
+    out = torch.empty((p, n_codes), dtype=torch.int64, device=dev)
+    stream = _stream(statuses)
+    ws = _k4_workspace(dev, stream, 1 + p * n_codes)
     from . import _build
     lib = _build.load('k4_status_hist')
-    with torch.cuda.device(statuses.device):
+    with torch.cuda.device(dev):
         rc = lib.k4_status_hist(
-            statuses.data_ptr(),
+            statuses.data_ptr(), statuses.stride(0),
             rowvalid.data_ptr() if rowvalid is not None else None,
-            out.data_ptr(), r, p, n_codes, _stream(statuses))
+            rowvalid.stride(0) if rowvalid is not None else 0,
+            out.data_ptr(), ws.data_ptr(), r, p, n_codes, stream)
     if rc != 0:
         raise RuntimeError(f'k4_status_hist launch failed: CUDA error {rc}')
     LAUNCHES['k4_status_hist'] += 1

@@ -82,6 +82,7 @@ from ..engine import pattern as leaf_pattern
 from ..engine.operators import _sprint
 from ..utils.duration import parse_duration
 from ..utils.quantity import Quantity
+from .kernels import glob_program
 
 _I64_MIN, _I64_MAX = -(1 << 63), (1 << 63) - 1
 
@@ -1620,9 +1621,12 @@ class _Gen:
             self.put('BYTES', a[0], 0, self.bytes_index(a[1]), len(a[1]))
             self.push_k()
         elif op == 'GLOB':
+            # the limit counts the pattern's own bytes; the pool holds it
+            # compiled (runs, stars, the '?' flag), decided once here
             self.max_pattern = max(self.max_pattern, len(a[3]))
-            self.put('GLOB', a[0], a[1], a[2], self.bytes_index(a[3]),
-                     len(a[3]))
+            prog = glob_program(a[3])
+            self.put('GLOB', a[0], a[1], a[2], self.bytes_index(prog),
+                     len(prog))
             self.push_k()
         elif op in ('IDXLT', 'IDXLAST', 'SUSP'):
             self.put(op, a[0], a[1])

@@ -145,17 +145,16 @@ def build_sharded_evaluator(cps: CompiledPolicySet, mesh: Mesh,
         # packed buffers themselves (evaluator.raw's packed entry)
         statuses, details, _fdet = evaluator.raw(tensors, layout)
         # the encoder's row-validity lane: canonical-capacity padding
-        # rows must not count in the cross-shard verdict summary
-        rowmask = evaluator.plan_for(layout).lanes(tensors).get(
-            '__rowvalid__')
+        # rows must not count in the cross-shard verdict summary.  K4h
+        # reads it in place, a strided view of its packed buffer
+        rv = evaluator.plan_for(layout).rowvalid_at
+        rowvalid = tensors[rv[0]][:, rv[1]].view(torch.uint8) \
+            if rv is not None else None
         # fdet is dropped here: the distributed summary path never
         # synthesizes messages (K1v still computes it)
         # per-rule verdict histogram over the status codes (K4h), then
         # the partial sums all-reduced over the mesh
-        rowvalid = rowmask.contiguous().view(torch.uint8) \
-            if rowmask is not None else None
-        summary = kernels.status_histogram(statuses.contiguous(), rowvalid,
-                                           n_codes)
+        summary = kernels.status_histogram(statuses, rowvalid, n_codes)
         summary = mesh.all_reduce_sum(summary)
         return statuses, details, summary
 

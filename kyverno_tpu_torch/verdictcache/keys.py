@@ -58,6 +58,7 @@ ENGINE_SOURCES = ('ops/eval.py', 'ops/kernels.py', 'ops/vm.py',
                   'csrc/k1_vm.cu', 'csrc/k1_vm.cuh', 'csrc/glob_dp.cuh',
                   'csrc/k1h_fdet_select.cu', 'csrc/k1c_wildcard.cu',
                   'csrc/k3_mutate.cu', 'csrc/k4_status_hist.cu',
+                  'csrc/k4_count.cuh',
                   'compiler/compile.py',
                   'compiler/encode.py', 'compiler/ir.py',
                   'compiler/pss_compile.py', 'compiler/scan.py',

@@ -294,9 +294,13 @@ def _k1c_inputs(n, w, seed, alphabet=b'ab:-*?x\xc3\xa9latest'):
 PATTERNS = ['*:*', '*', '?', '?*', '', 'a?b*', '*latest', '**a**', 'ab',
             'é?', '?é*', 'a' * 70, ':*:', '*-*-*']
 
+#: long patterns: several stars, literal runs, '?' among them
+LONG_PATTERNS = ['*a*b*:*x?*', 'ab*?:*latest*a', 'a?b?*:*?x*-*', '*' * 5,
+                 ('*ab:?' * 12)[:60], 'a*' * 30, '?' * 64 + '*']
+
 
 @pytest.mark.parametrize('w', [64, 16, 1])
-@pytest.mark.parametrize('pattern', PATTERNS)
+@pytest.mark.parametrize('pattern', PATTERNS + LONG_PATTERNS)
 def test_k1c_plain_matches_jax(pattern, w):
     head, str_len, tag = _k1c_inputs(300, w, seed=w + len(pattern))
     want_t, want_f = jax_wildcard(head, str_len, tag, pattern)
@@ -379,16 +383,26 @@ def test_k1c_wrapper_checks():
 
 @pytest.mark.cuda
 def test_k1c_cuda_kernel_matches_plain(cuda):
-    for w in (64, 16, 1):
-        head, str_len, tag = _k1c_inputs(4096, w, seed=w)
+    """Every staging width (16-byte loads at w = 16 and 64, 4-byte at
+    w = 8, bytes at w = 1 and 63 and from a window slab that starts one
+    byte past an aligned address), a partial last block, every
+    pattern."""
+    for w, shift in ((64, 0), (16, 0), (8, 0), (63, 0), (1, 0), (64, 1),
+                     (8, 1)):
+        head, str_len, tag = _k1c_inputs(4096 + 77, w, seed=w + shift)
         args = [torch.from_numpy(a) for a in (head, str_len, tag)]
-        for pattern in PATTERNS:
+        flat = torch.zeros(head.size + shift, dtype=torch.uint8,
+                           device=cuda)
+        dev_head = flat[shift:].view(head.shape)
+        dev_head.copy_(args[0].to(cuda))
+        dev = [dev_head] + [a.to(cuda) for a in args[1:]]
+        for pattern in PATTERNS + LONG_PATTERNS:
             pb = pattern.encode()
             want = kernels.wildcard_plain(*args, pb)
-            got = kernels.wildcard_match(*[a.to(cuda) for a in args], pb)
+            got = kernels.wildcard_match(*dev, pb)
             torch.cuda.synchronize()
-            assert torch.equal(got[0].cpu(), want[0]), (w, pattern)
-            assert torch.equal(got[1].cpu(), want[1]), (w, pattern)
+            assert torch.equal(got[0].cpu(), want[0]), (w, shift, pattern)
+            assert torch.equal(got[1].cpu(), want[1]), (w, shift, pattern)
 
 
 @pytest.mark.cuda

@@ -151,24 +151,139 @@ def test_k4h_wrapper_checks():
         kernels.status_histogram(_t(statuses), None, 0)
 
 
+def _strided(statuses, rowvalid, seed, device='cpu'):
+    """The statuses as columns 3.. of a wider int8 buffer and the row
+    mask as column 1 of a uint8 one, on ``device``: how the mesh step
+    hands K4h a lane of its packed buffer."""
+    rng = np.random.default_rng(seed)
+    r, p = statuses.shape
+    sbuf = rng.integers(-128, 128, (r, p + 7)).astype(np.int8)
+    sbuf[:, 3:3 + p] = statuses
+    st = torch.from_numpy(sbuf).to(device)[:, 3:3 + p]
+    if rowvalid is None:
+        return st, None
+    rbuf = rng.integers(0, 256, (r, 5)).astype(np.uint8)
+    rbuf[:, 1] = rowvalid
+    return st, torch.from_numpy(rbuf).to(device)[:, 1]
+
+
+@pytest.mark.parametrize('mask', ['absent', 'mixed'])
+def test_k4h_cpu_wrapper_takes_strided_lanes(mask):
+    statuses, rowvalid = _k4_inputs(300, 13, -2, 8, mask, seed=9)
+    st, rv = _strided(statuses, rowvalid, seed=4)
+    assert st.stride(0) == 20 and (rv is None or rv.stride(0) == 5)
+    kernels.reset_launches()
+    got = kernels.status_histogram(st, rv, N_CODES)
+    assert np.array_equal(got.numpy(),
+                          jax_histogram(statuses, rowvalid, N_CODES))
+    assert torch.equal(got, kernels.status_histogram_plain(
+        _t(statuses), _t(rowvalid), N_CODES))
+    assert kernels.LAUNCHES['k4_status_hist'] == 0
+
+
+@pytest.fixture(scope='module')
+def k4_host(tmp_path_factory):
+    """``k4_count_host`` of ``csrc/k4_count_host.cpp`` (K4h's counting
+    step, ``csrc/k4_count.cuh``), built with g++."""
+    import ctypes
+    import shutil
+    gxx = shutil.which('g++')
+    if gxx is None:
+        pytest.skip('needs g++ to build csrc/k4_count_host.cpp (the CPU '
+                    'build of K4h\'s counting step)')
+    out = tmp_path_factory.mktemp('k4') / 'k4_count_host.so'
+    proc = subprocess.run(
+        [gxx, '-std=c++17', '-O1', '-shared', '-fPIC', '-o', str(out),
+         os.path.join(REPO, 'kyverno_tpu_torch', 'csrc',
+                      'k4_count_host.cpp')],
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    fn = ctypes.CDLL(str(out)).k4_count_host
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    fn.argtypes = [p, ll, p, ll, ll, i, i, i, i, i, p]
+    fn.restype = i
+    return fn
+
+
+@pytest.mark.parametrize('rows,cols,lo,hi,n_codes,q,threads,grid,mask', [
+    (64, 13, 0, 6, 6, 1, 256, 1, 'mixed'),       # the step's width
+    (300, 7, -2, 8, 6, 1, 32, 2, 'mixed'),       # codes either side
+    (500, 40, -128, 128, 6, 4, 64, 3, 'absent'),  # every int8 value
+    (2000, 37, -3, 9, 8, 4, 16, 2, 'mixed'),     # 8 codes, a 5-column edge
+    (1000, 13, 0, 1, 1, 1, 256, 1, 'ones'),      # one code
+    (70000, 5, 0, 6, 6, 1, 2, 1, 'mixed'),       # 70,000 steps: 275 rounds
+    (16 * 256 + 1, 1, 2, 3, 6, 1, 1, 1, 'absent'),  # one code, 16 rounds
+    (20, 4097, -2, 8, 6, 4, 256, 1, 'mixed'),    # two column tiles
+    (33, 2100, -2, 8, 6, 1, 256, 2, 'zeros'),    # three tiles, all masked
+    (1, 3, 0, 6, 6, 1, 256, 4, 'ones'),          # one row, blocks idle
+])
+def test_k4h_host_count_matches_plain(k4_host, rows, cols, lo, hi, n_codes,
+                                      q, threads, grid, mask):
+    """K4h's counting step (byte counters, their flush every 255 row
+    steps, the reduction in 16-bit lanes, the column groups and tiles)
+    on strided statuses and row masks, against the plain version."""
+    statuses, rowvalid = _k4_inputs(rows, cols, lo, hi, mask,
+                                    seed=rows + cols)
+    st, rv = _strided(statuses, rowvalid, seed=cols)
+    out = np.zeros((cols, n_codes), np.int64)
+    rc = k4_host(st.data_ptr(), st.stride(0),
+                 rv.data_ptr() if rv is not None else None,
+                 rv.stride(0) if rv is not None else 0, rows, cols, n_codes,
+                 q, threads, grid, out.ctypes.data)
+    assert rc == 0
+    want = kernels.status_histogram_plain(_t(statuses), _t(rowvalid),
+                                          n_codes)
+    assert np.array_equal(out, want.numpy())
+
+
 @pytest.mark.cuda
 def test_k4h_cuda_kernel_matches_plain(cuda):
     kernels.reset_launches()
-    cases = [(16384, 13, 0, 6, 'mixed'), (131072, 256, -2, 8, 'mixed'),
-             (5000, 2100, -2, 8, 'absent'),   # two column tiles
-             (777, 3, -128, 128, 'zeros'), (0, 13, 0, 6, 'mixed'),
-             (64, 0, 0, 6, 'absent')]
+    cases = [(16384, 13, 0, 6, 'mixed', N_CODES),     # the mesh step
+             (131072, 256, -2, 8, 'mixed', N_CODES),  # random, 16-byte loads
+             (5000, 2100, -2, 8, 'absent', N_CODES),  # three column tiles
+             (777, 3, -128, 128, 'zeros', N_CODES),
+             (1000, 1, -2, 8, 'mixed', N_CODES),      # P = 1
+             (3000, 4097, -2, 8, 'mixed', N_CODES),   # P = 4,097
+             (1, 13, 0, 6, 'ones', N_CODES),          # one row
+             (16 * 256 + 1, 64, 3, 4, 'absent', N_CODES),  # one code
+             (16383, 256, 0, 8, 'mixed', 8),          # 8 codes, ragged rows
+             (4099, 17, -2, 12, 'mixed', 9),          # the shared-memory path
+             (300, 5, -2, 100, 'mixed', kernels.K4_MAX_CODES),
+             (0, 13, 0, 6, 'mixed', N_CODES), (64, 0, 0, 6, 'absent', N_CODES)]
     launched = 0
-    for i, (rows, cols, lo, hi, mask) in enumerate(cases):
+    for i, (rows, cols, lo, hi, mask, n_codes) in enumerate(cases):
         statuses, rowvalid = _k4_inputs(rows, cols, lo, hi, mask, seed=i)
         want = kernels.status_histogram_plain(_t(statuses), _t(rowvalid),
-                                              N_CODES)
+                                              n_codes)
         rv = _t(rowvalid).to(cuda) if rowvalid is not None else None
-        got = kernels.status_histogram(_t(statuses).to(cuda), rv, N_CODES)
+        got = kernels.status_histogram(_t(statuses).to(cuda), rv, n_codes)
+        got_s = kernels.status_histogram(
+            *_strided(statuses, rowvalid, seed=i, device=cuda), n_codes)
         torch.cuda.synchronize()
-        assert torch.equal(got.cpu(), want), (rows, cols, mask)
-        launched += rows > 0 and cols > 0
+        assert torch.equal(got.cpu(), want), (rows, cols, mask, n_codes)
+        assert torch.equal(got_s.cpu(), want), (rows, cols, mask, 'strided')
+        launched += 2 * (rows > 0 and cols > 0)
     assert kernels.LAUNCHES['k4_status_hist'] == launched
+
+
+@pytest.mark.cuda
+def test_k4h_cuda_two_streams_keep_their_own_workspace(cuda):
+    """Launches on two streams at once each end with their own
+    histogram: the ticket and accumulator are per stream."""
+    cases = [_k4_inputs(131072, 256, -2, 8, 'mixed', seed=s) for s in (1, 2)]
+    dev = [(_t(st).to(cuda), _t(rv).to(cuda)) for st, rv in cases]
+    streams = [torch.cuda.Stream(cuda) for _ in cases]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for k, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[k].append(kernels.status_histogram(*dev[k], N_CODES))
+    torch.cuda.synchronize()
+    for k, (st, rv) in enumerate(cases):
+        want = kernels.status_histogram_plain(_t(st), _t(rv), N_CODES)
+        assert all(torch.equal(o.cpu(), want) for o in outs[k])
 
 
 # ---------------------------------------------------------------------------

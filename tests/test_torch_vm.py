@@ -55,6 +55,11 @@ def host_vm(tmp_path_factory):
     fold.argtypes = [p, p, p, ctypes.c_int, p, p, p]
     fold.restype = None
     fn.fold = fold
+    glob = lib.k1_glob_host
+    glob.argtypes = [p, ctypes.c_int, p, p, ctypes.c_longlong,
+                     ctypes.c_char_p, ctypes.c_int, p]
+    glob.restype = None
+    fn.glob = glob
     return fn
 
 
@@ -594,7 +599,8 @@ def test_pools_round_trip():
 
 def test_program_pools_hold_the_packs_constants():
     """A lowered program's BYTES and GLOB instructions point at their
-    constants in the byte pool, and CI's at their int64s."""
+    constants in the byte pool (a GLOB's pattern compiled by
+    ``kernels.glob_program``), and CI's at their int64s."""
     from kyverno_tpu_torch.compiler.encode import encode_batch
     from kyverno_tpu_torch.ops.eval import pack_batch
     _jc, _jev, tc, tev = _evaluators('smoke')
@@ -604,7 +610,7 @@ def test_program_pools_hold_the_packs_constants():
     pool = prog.bytes.tobytes()
     globs = {pool[ins[4]:ins[4] + ins[5]] for ins in prog.code.tolist()
              if ins[0] == vm.OP['GLOB']}
-    assert b'*:*' in globs
+    assert kernels.glob_program(b'*:*') in globs
     eqs = {pool[ins[3]:ins[3] + ins[4]].rstrip(b'\0')
            for ins in prog.code.tolist() if ins[0] == vm.OP['BYTES']}
     assert b'!*:latest' in eqs and b':latest' in eqs
