@@ -30,8 +30,9 @@ CUDA card and checks it, in phases that each print one line:
    memory), ptxas' numbers, the instructions it executed per row (its
    loops stop at the count) beside ``row_insns``, the full-width count
    its bound uses, and its time with every block in the global mode.
-3. ``slice``: ``scan_report_results`` over ``--pods`` Pods (default
-   100,000, a large production cluster) with the smoke pack's 12
+3. ``slice``: ``scan_report_results`` over ``--pods`` Pods (100,000
+   is a large production cluster; the default is cut to 3 chunks + 1,
+   49,153, so that phase 9 fits the time limit) with the smoke pack's 12
    policies: Pods/s, decisions/s, the stage breakdown, the
    device-decided fraction, each kernel's launches during the scan
    (K1v and K1h must launch, K1v once per chunk) and the encoder pool's
@@ -103,7 +104,7 @@ CUDA card and checks it, in phases that each print one line:
 8. ``restricted_chunk``, ``restricted_slice``, ``restricted_admission``:
    the restricted configuration (``smokepack.load_restricted_pack``: the
    smoke pack, Kyverno's restricted chart's ``disallow-capabilities-
-   strict`` foreach rules and the admission-lanes pack) over 100,000
+   strict`` foreach rules and the admission-lanes pack) over ``--pods``
    ``make_restricted_pod`` Pods.  K1v, which now runs the ``foreach``
    trees and the per-row admission match (K1i), is held bit-equal to its
    plain version (the eager walk and ``_adm_match_graph``) on the first
@@ -114,6 +115,31 @@ CUDA card and checks it, in phases that each print one line:
    and 8,000 batch /validate/fail reviews from the ``ADMISSIONS`` users,
    roles resolved from the same table by both handlers; checks as in
    phase 7).
+9. ``reports``, ``partitioned``: the reports-controller daemon,
+   ``ReportsController(Setup('kyverno-reports-controller', [],
+   client=FakeClient()))``, its own ``tick()`` driven directly over a
+   client holding the smoke pack as ClusterPolicies and the Pods, the
+   verdict cache in a fresh temporary directory; (b) runs in a child
+   process of this script (``--partitioned-child OUT``) while (a) runs
+   here, each on the card.  (a) Whole set
+   (``KTPU_PARTITIONS=0``) over every Pod: a cold tick (one report per
+   Pod, rows equal to the slice phase's and, on the first 2,000 and
+   the last chunk, to the host engine's; K1v and K1h once per chunk, the
+   encoder pool up and not broken), a tick after ``reset_scan_state()``
+   and ``enqueue_all()`` (every row replayed, no launch, the same
+   reports) and a tick after one rule message is edited through the
+   client (a new cache generation, every row rescanned, sampled rows
+   equal to the host engine's under the edited set).  (b) Partitioned
+   (``KTPU_PARTITIONS=4``, a fresh cache directory) over at most the
+   first 3 chunks + 1 Pods: a cold tick (rows equal to (a)'s, K1v once per
+   partition per chunk, no fallback) and the same edit (1 recompile,
+   every row on the scoped path, K1v only for the touched partition,
+   rows equal to (a)'s edit tick), then the executable ledger: one
+   record per (partition, layout) under the partition's fingerprint,
+   none for the whole-set evaluator.  Each line gives per tick the wall
+   time, Pods/s, the seconds of the daemon's passes and of the scan
+   stages, launches, rescan and partition counters, the verdict cache's
+   bytes on disk and the encoder pool.
 
 Every phase fails if a program of its packs is routed to the eager
 walk.  Then the seconds of each phase, one JSON line of
@@ -130,7 +156,8 @@ Run from the repository root:
 
     python3 chip_smoke.py [--pods N] [--seed S]
 
-(``--mesh-child RANK`` is the mode phase 4c starts its two ranks in.)
+(``--mesh-child RANK`` is the mode phase 4c starts its two ranks in,
+``--partitioned-child OUT`` the one phase 9 starts 9b in.)
 
 Without a CUDA card, or outside the repository, it exits non-zero and
 prints no result.  It imports nothing of JAX or of the JAX package.
@@ -982,11 +1009,15 @@ def kernel_phase(seen, device, seed):
 # phase 3: the slice
 
 def row_digests(rows) -> list:
-    """sha256 of each report row: its results and summary as canonical
-    JSON (the policies' names are in the results)."""
+    """sha256 of each report row: its results, without their
+    timestamps, and its summary as canonical JSON (the policies' names
+    are in the results), so rows of scans stamped at other times
+    compare."""
     import hashlib
-    return [hashlib.sha256(json.dumps([r[0], r[1]], sort_keys=True)
-                           .encode()).digest() for r in rows]
+    return [hashlib.sha256(json.dumps(
+        [[{k: v for k, v in res.items() if k != 'timestamp'}
+          for res in r[0]], r[1]], sort_keys=True).encode()).digest()
+        for r in rows]
 
 
 def digest_of(digests, n=None) -> str:
@@ -2264,10 +2295,390 @@ def restricted_phase(scanner, policies, pods, device, seed) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the reports-controller daemon (cmd/reports_controller.py)
+
+#: the ClusterPolicy whose rule message the edit tick changes (a
+#: partition of its own under KTPU_PARTITIONS=4)
+REPORTS_EDIT = 'require-resources'
+REPORTS_PARTITIONS = 4          # KTPU_PARTITIONS of the partitioned ticks
+REPORTS_CHECK = 1000            # edit-tick rows held against the host engine
+REPORTS_CHILD_TIMEOUT_S = 900  # the partitioned ticks' process
+
+
+def reports_cluster(policies, pods):
+    """A ``FakeClient`` holding ``policies`` as ClusterPolicies and the
+    Pods; returns it and the Pods as the client stored them (with the
+    uid and resourceVersion it gave each), in order."""
+    from kyverno_tpu_torch.dclient.client import FakeClient
+    client = FakeClient()
+    for p in policies:
+        client.create_resource('kyverno.io/v1', 'ClusterPolicy', '', p.raw)
+    docs = [client.create_resource('v1', 'Pod', pod['metadata']['namespace'],
+                                   pod) for pod in pods]
+    return client, docs
+
+
+def edit_policy(client, name: str) -> None:
+    """Change the message of ``name``'s first rule through the client."""
+    pol = client.get_resource('kyverno.io/v1', 'ClusterPolicy', '', name)
+    rule = pol['spec']['rules'][0]
+    rule['validate']['message'] += ' (edited)'
+    client.update_resource('kyverno.io/v1', 'ClusterPolicy', '', pol)
+
+
+def _timed_parts(daemon, written: list) -> dict:
+    """Wrap the daemon's four sub-controller passes with wall clocks,
+    and keep the reports the scan controller's pass returns (each as
+    the client stored it) in ``written``; returns the dict each tick's
+    seconds accumulate into."""
+    parts = {}
+    for key, obj, meth in (
+            ('sync', daemon.resource_controller, 'sync'),
+            ('reconcile', daemon.scan_controller, 'reconcile'),
+            ('admission', daemon.admission_controller, 'reconcile'),
+            ('aggregate', daemon.aggregate_controller, 'reconcile')):
+        fn = getattr(obj, meth)
+
+        def timed(*a, _fn=fn, _key=key, **k):
+            t0 = time.perf_counter()
+            try:
+                out = _fn(*a, **k)
+            finally:
+                parts[_key] = parts.get(_key, 0.0) + \
+                    time.perf_counter() - t0
+            if _key == 'reconcile':
+                written.extend(out)
+            return out
+        setattr(obj, meth, timed)
+    return parts
+
+
+def _dir_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _dirs, files in os.walk(root) for f in files)
+
+
+def reports_tick(daemon, parts, vc_dir) -> dict:
+    """One ``ReportsController.tick()``: its wall and Pods/s (the rows
+    it demanded), the seconds of each sub-controller pass and of each
+    scan stage, each kernel's launches, the rescan stats, the partition
+    counters, the verdict cache's bytes on disk and the encoder pool."""
+    from kyverno_tpu_torch.observability import device as devtel
+    from kyverno_tpu_torch.observability.metrics import global_registry
+    from kyverno_tpu_torch.ops import kernels
+    from kyverno_tpu_torch.partition.runtime import (
+        PARTITION_FALLBACKS, PARTITION_RECOMPILES, PARTITION_REUSES)
+    reg = global_registry()
+
+    def stage_sums():
+        return {dict(key).get('stage', ''): total for key, _n, total in
+                reg.histogram_series(devtel.SCAN_STAGE_DURATION)}
+
+    def counters():
+        return {'recompiles': reg.counter_value(PARTITION_RECOMPILES),
+                'reuses': reg.counter_value(PARTITION_REUSES),
+                'fallbacks': reg.counter_value(PARTITION_FALLBACKS)}
+
+    stages0, counters0 = stage_sums(), counters()
+    parts.clear()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    daemon.tick()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    stages1, counters1 = stage_sums(), counters()
+    stats = dict(daemon.scan_controller.rescan_stats)
+    pool = daemon.scan_controller.scanner._encoder_pool
+    return {
+        'wall_s': wall, 'pods_per_s': stats['rows_pending'] / wall,
+        'parts_s': dict(parts),
+        'stage_s': {k: v - stages0.get(k, 0.0)
+                    for k, v in sorted(stages1.items())
+                    if v - stages0.get(k, 0.0) > 0},
+        'launches': {k: v for k, v in launches.items() if v},
+        'rescan': stats,
+        'partition': {k: counters1[k] - counters0[k] for k in counters1},
+        'verdict_cache_bytes': _dir_bytes(vc_dir),
+        'encoder_pool': {'procs': pool.procs, 'up': pool._pool is not None,
+                         'broken': pool._broken},
+    }
+
+
+class _Ticks:
+    """What the ticks of one daemon share: the Pods as its client
+    stored them, the problems found, and the checks that add to them."""
+
+    def __init__(self, policies, pods, vc_dir):
+        from kyverno_tpu_torch.cmd.internal import Setup
+        from kyverno_tpu_torch.cmd.reports_controller import \
+            ReportsController
+        os.environ['KTPU_VERDICT_CACHE_DIR'] = vc_dir
+        self.vc_dir = vc_dir
+        self.problems = []
+        t0 = time.perf_counter()
+        self.client, self.docs = reports_cluster(policies, pods)
+        self.daemon = ReportsController(Setup(
+            'kyverno-reports-controller', [], client=self.client))
+        self.written = []
+        self.parts = _timed_parts(self.daemon, self.written)
+        self.setup_s = time.perf_counter() - t0
+
+    def tick(self, name: str, edit: bool = False) -> dict:
+        if edit:
+            edit_policy(self.client, REPORTS_EDIT)
+        self.written.clear()
+        tick = reports_tick(self.daemon, self.parts, self.vc_dir)
+        tick['name'] = name
+        return tick
+
+    def rows(self, tick):
+        """Per Pod, in order, the ``(results, summary)`` of the report
+        the tick wrote for it (named by the Pod's uid; None where it
+        wrote none), and the rows' digests."""
+        t0 = time.perf_counter()
+        by_name = {r['metadata']['name']: r for r in self.written}
+        rows = [None if r is None else
+                (r['spec']['results'], r['spec']['summary'])
+                for r in (by_name.get(d['metadata']['uid'])
+                          for d in self.docs)]
+        missing = sum(r is None for r in rows)
+        if missing:
+            self.problems.append(f'{tick["name"]}: {missing} Pods without '
+                                 f'a report')
+        digests = row_digests([r or ([], {}) for r in rows])
+        tick['read_s'] = time.perf_counter() - t0
+        return rows, digests
+
+    def host_check(self, tick, rows, policies, idx) -> None:
+        """Rows ``idx`` against the host engine's under ``policies``."""
+        from kyverno_tpu_torch.engine.engine import Engine
+        from kyverno_tpu_torch.smokepack import host_report_results
+        engine = Engine()
+        t0 = time.perf_counter()
+        bad = [i for i in idx if rows[i] is None or
+               row_digests([rows[i]]) != row_digests(
+                   [host_report_results(policies, self.docs[i], NOW,
+                                        engine)])]
+        if bad:
+            self.problems.append(f'{tick["name"]}: {len(bad)} of '
+                                 f'{len(idx)} rows differ from the host '
+                                 f'engine: {bad[:10]}')
+        tick['vs_host'] = {'rows': len(idx), 'mismatches': len(bad),
+                           'check_s': time.perf_counter() - t0}
+
+    def expect(self, tick, n: int, k1_calls: int, replayed: int = 0,
+               scoped: int = 0) -> None:
+        """Every one of ``n`` Pods demanded, ``replayed`` of them from
+        the verdict cache and ``scoped`` on the scoped path, and K1v and
+        K1h launched ``k1_calls`` times per chunk of the rows the tick
+        scanned."""
+        st = tick['rescan']
+        if st['rows_pending'] != n or st['rows_replayed'] != replayed or \
+                st.get('rows_scoped', 0) != scoped:
+            self.problems.append(f'{tick["name"]}: rescan stats {st} '
+                                 f'(pending {n}, replayed {replayed}, '
+                                 f'scoped {scoped} expected)')
+        chunks = -(-st['rows_scanned'] //
+                   self.daemon.scan_controller.scanner.CHUNK)
+        for k in SCAN_KERNELS:
+            got = tick['launches'].get(k, 0)
+            if got != k1_calls * chunks:
+                self.problems.append(
+                    f'{tick["name"]}: {k} launched {got} times for {chunks} '
+                    f'chunks x {k1_calls} (once per K1 call)')
+
+
+def same_rows(digests, want, name: str, problems: list) -> dict:
+    """Rows of two runs over the same Pods, by digest."""
+    k = min(len(digests), len(want))
+    diff = [i for i in range(k) if digests[i] != want[i]]
+    if diff:
+        problems.append(f'{name}: {len(diff)} of {k} rows differ: '
+                        f'{diff[:10]}')
+    return {'rows': k, 'mismatches': len(diff)}
+
+
+def whole_ticks(policies, pods, slice_digests, vc_dir):
+    """Phase 9a: the daemon with the whole policy set
+    (``KTPU_PARTITIONS=0``) over every Pod: the cold tick, a replay of
+    every row, and the edit tick.  Returns the record, the problems, and
+    the cold and edit ticks' row digests."""
+    os.environ['KTPU_PARTITIONS'] = '0'
+    t = _Ticks(policies, pods, vc_dir)
+    n = len(pods)
+    sc = t.daemon.scan_controller
+    cold = t.tick('cold')
+    t.expect(cold, n, 1)
+    if cold['encoder_pool']['broken'] or not cold['encoder_pool']['up']:
+        t.problems.append(f'cold: the encoder pool is not serving: '
+                          f'{cold["encoder_pool"]}')
+    rows, cold_d = t.rows(cold)
+    if slice_digests is not None:
+        cold['vs_slice'] = same_rows(cold_d, slice_digests, 'cold vs slice',
+                                     t.problems)
+    last = ((n - 1) // sc.scanner.CHUNK) * sc.scanner.CHUNK
+    t.host_check(cold, rows, policies,
+                 sorted(set(range(min(n, CHECK_HEAD))) | set(range(last, n))))
+    del rows
+    sc.reset_scan_state()
+    sc.enqueue_all()
+    replay = t.tick('replay')
+    t.expect(replay, n, 1, replayed=n)
+    _rows, replay_d = t.rows(replay)
+    replay['vs_cold'] = same_rows(replay_d, cold_d, 'replay vs cold',
+                                  t.problems)
+    del _rows
+    generation = sc.verdict_cache.fingerprint
+    edit = t.tick('edit', edit=True)
+    t.expect(edit, n, 1)
+    edit['new_generation'] = sc.verdict_cache.fingerprint != generation
+    if not edit['new_generation']:
+        t.problems.append('edit: the verdict cache kept its generation')
+    rows, edit_d = t.rows(edit)
+    t.host_check(edit, rows, sc.policies,
+                 list(range(0, n, max(1, n // REPORTS_CHECK))))
+    sc.scanner._encoder_pool.close()
+    t.daemon.setup.shutdown()
+    return ({'pods': n, 'setup_s': t.setup_s, 'cold': cold,
+             'replay': replay, 'edit': edit}, t.problems, cold_d, edit_d)
+
+
+def partitioned_ticks(policies, pods, vc_dir):
+    """Phase 9b: the daemon with ``KTPU_PARTITIONS=4``: the cold tick
+    and the edit tick, then the executable ledger — one record per
+    (partition, layout) under the partition's fingerprint and none for
+    the whole-set evaluator — and the partition census.  Returns the
+    record, the problems and the two ticks' row digests."""
+    from kyverno_tpu_torch.observability import executables
+    from kyverno_tpu_torch.partition import census
+    os.environ['KTPU_PARTITIONS'] = str(REPORTS_PARTITIONS)
+    t = _Ticks(policies, pods, vc_dir)
+    n = len(pods)
+    sc = t.daemon.scan_controller
+    cold = t.tick('partitioned cold')
+    if sc.scanner._pset is None:
+        raise AssertionError('partitioned: the scanner fell back to the '
+                             'whole set')
+    runtimes = sc.scanner._pset.runtimes
+    t.expect(cold, n, len(runtimes))
+    if cold['partition']['fallbacks']:
+        t.problems.append(f'partitioned cold: {cold["partition"]}')
+    _rows, cold_d = t.rows(cold)
+    del _rows
+    edit = t.tick('partitioned edit', edit=True)
+    t.expect(edit, n, 1, scoped=n)
+    if edit['partition']['recompiles'] != 1 or \
+            edit['partition']['fallbacks']:
+        t.problems.append(f'partitioned edit: {edit["partition"]} (1 '
+                          f'recompile expected)')
+    _rows, edit_d = t.rows(edit)
+    del _rows
+    by_fp = {}
+    for rec in executables.ledger().records():
+        by_fp.setdefault(rec.fingerprint, []).append(rec)
+    ledger = []
+    for rt in sc.scanner._pset.runtimes:
+        ev = rt.evaluator
+        want = sum(p.program is not None for p in ev.plans.values())
+        got = by_fp.get(ev.fingerprint, [])
+        ledger.append({'partition': rt.part.pid, 'layouts': want,
+                       'records': len(got),
+                       'dispatches': sum(r.dispatches for r in got)})
+        if len(got) != want or not want:
+            t.problems.append(f'ledger: partition {rt.part.pid} has '
+                              f'{len(got)} records for {want} layouts')
+    if sc.scanner._evaluator.fingerprint in by_fp:
+        t.problems.append('ledger: the whole-set evaluator was lowered')
+    rep = census.report()
+    t.daemon.setup.shutdown()
+    return ({'pods': n, 'setup_s': t.setup_s,
+             'partitions': [[sc.policies[i].name
+                             for i in rt.part.policy_indices]
+                            for rt in runtimes],
+             'cold': cold, 'edit': edit,
+             'ledger': {'census': executables.census(), 'partitions': ledger,
+                        'census_sets': [{
+                            'n_partitions': st['n_partitions'],
+                            'executables': [p['executables']['executables']
+                                            for p in st['partitions']]}
+                            for st in rep['sets']],
+                        'unattributed': rep['unattributed']}},
+            t.problems, cold_d, edit_d)
+
+
+def partitioned_child(args) -> int:
+    """Phase 9b in a process of its own, beside 9a: the first
+    ``--pods`` Pods of ``--seed``, the verdict cache in a fresh
+    temporary directory; writes the record, the problems and the row
+    digests to ``--partitioned-child``'s file."""
+    import tempfile
+    import torch
+    from kyverno_tpu_torch import smokepack
+    if not torch.cuda.is_available():
+        _die('torch.cuda.is_available() is False')
+    policies = smokepack.load_smoke_pack()
+    rng = random.Random(args.seed)
+    pods = [smokepack.make_config4_pod(rng, i) for i in range(args.pods)]
+    with tempfile.TemporaryDirectory(prefix='ktpu-partitioned-') as tmp:
+        rec, problems, cold_d, edit_d = partitioned_ticks(policies, pods,
+                                                          tmp)
+    with open(args.partitioned_child, 'w') as f:
+        json.dump({'record': rec, 'problems': problems,
+                   'cold': [d.hex() for d in cold_d],
+                   'edit': [d.hex() for d in edit_d]}, f)
+    return 0
+
+
+def reports_phase(policies, pods, slice_digests, partitioned_pods: int,
+                  seed: int, tmp: str) -> dict:
+    """Phase 9: 9b in a child process over the first
+    ``partitioned_pods`` Pods while 9a runs here over every Pod (two
+    processes, each on the card); then 9b's rows against 9a's.  Both
+    drive the daemon's own ``tick()``, so a failing tick ends the run."""
+    out_path = os.path.join(tmp, 'partitioned.json')
+    logs = (os.path.join(tmp, 'partitioned.out'),
+            os.path.join(tmp, 'partitioned.err'))
+    cmd = [sys.executable, os.path.abspath(__file__), '--seed', str(seed),
+           '--pods', str(partitioned_pods), '--partitioned-child', out_path]
+    with open(logs[0], 'w') as out, open(logs[1], 'w') as err:
+        child = subprocess.Popen(cmd, cwd=HERE, stdout=out, stderr=err)
+    deadline = time.monotonic() + REPORTS_CHILD_TIMEOUT_S
+    try:
+        whole, problems, cold_d, edit_d = whole_ticks(
+            policies, pods, slice_digests, os.path.join(tmp, 'whole'))
+        while child.poll() is None and time.monotonic() < deadline:
+            time.sleep(0.5)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if child.returncode != 0 or not os.path.exists(out_path):
+        with open(logs[1]) as err:
+            tail = err.read()[-3000:]
+        raise AssertionError(f'the partitioned child exited '
+                             f'{child.returncode} (killed past '
+                             f'{REPORTS_CHILD_TIMEOUT_S} s if negative):\n'
+                             f'{tail}')
+    with open(out_path) as f:
+        res = json.load(f)
+    part = res['record']
+    problems += res['problems']
+    for name, got, want in (('cold', res['cold'], cold_d),
+                            ('edit', res['edit'], edit_d)):
+        part[name]['vs_whole'] = same_rows(
+            [bytes.fromhex(d) for d in got], want,
+            f'partitioned {name} vs whole', problems)
+    return {'whole': whole, 'partitioned': part, 'edit': REPORTS_EDIT,
+            'problems': problems}
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
-    ap.add_argument('--pods', type=int, default=100_000)
+    ap.add_argument('--pods', type=int, default=MIN_PODS,
+                    help='Pods of the scans and of the reports daemon\'s '
+                         'cluster (100,000 is the full configuration)')
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--mesh-child', type=int, metavar='RANK',
                     help='run as one rank of the two-rank mesh phase')
@@ -2276,6 +2687,8 @@ def main(argv=None) -> int:
                     help='(--mesh-child) Pods of the distributed step')
     ap.add_argument('--device', default='cuda:0',
                     help='(--mesh-child) the rank\'s device')
+    ap.add_argument('--partitioned-child', metavar='OUT',
+                    help='run phase 9b and write its result to OUT')
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, 'kyverno_tpu_torch')):
         _die('kyverno_tpu_torch/ is not beside this script; run it from a '
@@ -2285,6 +2698,8 @@ def main(argv=None) -> int:
         if not args.store:
             _die('--mesh-child needs --store')
         return mesh_child(args)
+    if args.partitioned_child:
+        return partitioned_child(args)
     import torch
     if not torch.cuda.is_available():
         _die('torch.cuda.is_available() is False: this script measures '
@@ -2327,7 +2742,8 @@ def main(argv=None) -> int:
               f'scanning {MIN_PODS}', flush=True)
         n = MIN_PODS
     elif n < 100_000:
-        print(f'cut: scanning {n} Pods instead of 100000', flush=True)
+        print(f'cut: the slice, the restricted scan and the reports daemon '
+              f'run over {n} Pods instead of 100000', flush=True)
     rng = random.Random(args.seed)
     pods = [smokepack.make_config4_pod(rng, i) for i in range(n)]
     scanner = BatchScanner(policies)       # on the card by default
@@ -2422,6 +2838,22 @@ def main(argv=None) -> int:
         rscanner._encoder_pool.close()
     report['restricted'] = rs
     phase_done('restricted')
+
+    # 9. the reports controller -----------------------------------------
+    nb = min(n, MIN_PODS)
+    if nb < n:
+        print(f'cut: the partitioned ticks run over {nb} Pods instead of '
+              f'{n}', flush=True)
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix='ktpu-reports-') as tmp:
+        rp = reports_phase(policies, pods, slice_digests, nb, args.seed,
+                           tmp)
+    print('reports ' + json.dumps(rp['whole']), flush=True)
+    print('partitioned ' + json.dumps(rp['partitioned']), flush=True)
+    report['reports'] = rp
+    if rp['problems']:
+        raise AssertionError('reports: ' + '; '.join(rp['problems']))
+    phase_done('reports')
     for r in records:
         # K1v, K1h, K1c and K3 are held at the admission webhook's shapes:
         # its launches, and the times and bound of the kernel at the
@@ -2445,6 +2877,11 @@ def main(argv=None) -> int:
             'restricted_scan': rs['slice']['launches'].get(r['name'], 0),
             'restricted_admission': rs['admission']['launches'].get(
                 r['name'], 0),
+            'reports': sum(rp['whole'][t]['launches'].get(r['name'], 0)
+                           for t in ('cold', 'replay', 'edit')),
+            'partitioned': sum(
+                rp['partitioned'][t]['launches'].get(r['name'], 0)
+                for t in ('cold', 'edit')),
             # the eager walks that hold K1v against its plain version
             # (K1c runs only there: on the main path its DP is in K1v)
             'k1v_checks': chunk_stats['k1v_check']['capture_launches'].get(

@@ -32,9 +32,11 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import hashlib
 import json as _json
 import os
 import threading
+import time
 from fractions import Fraction
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -1914,6 +1916,12 @@ def build_evaluator(cps: CompiledPolicySet, device=None):
     # order (pack_batch lays out one signature in one order)
     plans: Dict[Any, Any] = {}
     plans_lock = threading.Lock()
+    # the executable ledger tags each K1v program with the fingerprint
+    # of the policies this evaluator compiles: the whole set, or one
+    # partition's members under KTPU_PARTITIONS (partition/keys.py),
+    # which is what lets partition/census.py attribute programs
+    from ..partition.keys import compile_fingerprint
+    fingerprint = compile_fingerprint(cps)
 
     def plan_for(layout) -> LayoutPlan:
         sig = tuple(layout.items())
@@ -1925,7 +1933,21 @@ def build_evaluator(cps: CompiledPolicySet, device=None):
             if plan is None:
                 if len(plans) > 128:
                     plans.clear()
-                plan = plans[sig] = LayoutPlan(layout)
+                t0 = time.monotonic()
+                plan = LayoutPlan(layout)
+                build_s = time.monotonic() - t0
+                plan.ledger_key = hashlib.sha256(repr(
+                    (fingerprint, str(device), fdet_k, sig)).encode()
+                ).hexdigest()
+                plans[sig] = plan
+                from ..observability import executables as exectel
+                if plan.program is not None and exectel.enabled():
+                    # a K1v program serves every row count of its
+                    # layout: the record has no capacity
+                    exectel.record_build(
+                        plan.ledger_key, fingerprint=fingerprint,
+                        source='fresh_compile', build_s=build_s,
+                        compiled=plan.program)
         return plan
 
     def evaluate_unique(packed: Dict[str, torch.Tensor], plan: LayoutPlan):
@@ -1949,10 +1971,11 @@ def build_evaluator(cps: CompiledPolicySet, device=None):
                 place(out[:3], eager_trees, walk_trees(t, eager_trees))
         return out
 
-    def evaluate(packed: Dict[str, torch.Tensor], layout):
+    def evaluate(packed: Dict[str, torch.Tensor], layout, plan=None):
         """Program-space evaluation (raw consumers: the mesh paths):
         unique results expanded by a device-side column gather."""
-        s_u, d_u, fdet_u, _adm = evaluate_unique(packed, plan_for(layout))
+        s_u, d_u, fdet_u, _adm = evaluate_unique(
+            packed, plan if plan is not None else plan_for(layout))
         if n_uniq == 0 or expand_identity:
             return s_u, d_u, fdet_u
         with _consts():
@@ -1984,9 +2007,10 @@ def build_evaluator(cps: CompiledPolicySet, device=None):
 
     def evaluate_packed(packed: Dict[str, torch.Tensor],
                         layout: Dict[str, Tuple[str, int, int,
-                                                Tuple[int, ...]]]):
+                                                Tuple[int, ...]]],
+                        plan: LayoutPlan):
         if '__match__' not in layout:
-            return evaluate(packed, layout)
+            return evaluate(packed, layout, plan)
         # compact form, all in UNIQUE space (match arrives pre-folded to
         # [R, n_uniq]): ship (statuses|details|admission match) as one
         # int8 row and the (matched & FAIL) fail-detail cells as [cols |
@@ -1996,7 +2020,6 @@ def build_evaluator(cps: CompiledPolicySet, device=None):
         # with the row-validity lane so every occupancy gives
         # bit-identical output.  Fixed budget: rows overflowing it
         # degrade to exact host materialization, never wrong answers.
-        plan = plan_for(layout)
         s_u, d_u, fdet_u, adm = evaluate_unique(packed, plan)
         k = min(fdet_k, n_cols_u)
         with torch.profiler.record_function('k1h_fdet_select'):
@@ -2011,15 +2034,28 @@ def build_evaluator(cps: CompiledPolicySet, device=None):
     def call(packed: Dict[str, Any],
              layout: Dict[str, Tuple[str, int, int, Tuple[int, ...]]]):
         from ..observability import device as devtel
+        from ..observability import executables as exectel
         with devtel.stage('device_eval') as st:
             _stamp_coverage(st)
-            return evaluate_packed(packed, layout)
+            plan = plan_for(layout)
+            if not exectel.enabled():
+                return evaluate_packed(packed, layout, plan)
+            # the host time of the dispatch: the call returns before
+            # the card finishes, and the ledger adds no sync
+            t0 = time.monotonic()
+            out = evaluate_packed(packed, layout, plan)
+            exectel.record_dispatch(plan.ledger_key,
+                                    time.monotonic() - t0)
+            return out
 
     call.raw = evaluate
     #: {program index: ('vm' | 'eager', reason)}: which of K1v and the
     #: eager walk evaluates each program's unique tree
     call.routes = {j: uniq_routes[u] for j, u in enumerate(uniq_idx_list)}
     call.plan_for = plan_for
+    #: {layout signature: LayoutPlan} of the layouts planned so far
+    call.plans = plans
+    call.fingerprint = fingerprint
     call.any_meta = any_meta
     call.n_cols = n_cols
     call.n_programs = len(cps.programs)

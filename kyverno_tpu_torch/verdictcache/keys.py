@@ -51,9 +51,10 @@ def spec_digest(resource: dict) -> str:
 
 
 #: sources whose semantics are baked into a verdict row: the evaluator
-#: and compiler, the hand-written kernels and their wrappers, then the
-#: scan-assembly and report-mapping layers that turn device cells into
-#: result dicts
+#: and compiler, the hand-written kernels and their wrappers, the
+#: partition runtime and composer (partitioned scans store composed
+#: rows), then the scan-assembly and report-mapping layers that turn
+#: device cells into result dicts
 ENGINE_SOURCES = ('ops/eval.py', 'ops/kernels.py', 'ops/vm.py',
                   'csrc/k1_vm.cu', 'csrc/k1_vm.cuh', 'csrc/glob_dp.cuh',
                   'csrc/k1h_fdet_select.cu', 'csrc/k1c_wildcard.cu',
@@ -62,6 +63,7 @@ ENGINE_SOURCES = ('ops/eval.py', 'ops/kernels.py', 'ops/vm.py',
                   'compiler/compile.py',
                   'compiler/encode.py', 'compiler/ir.py',
                   'compiler/pss_compile.py', 'compiler/scan.py',
+                  'partition/compose.py', 'partition/runtime.py',
                   'reports/results.py')
 
 

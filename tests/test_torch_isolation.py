@@ -21,9 +21,11 @@ REF = os.path.join(ROOT, 'kyverno_tpu')
 #: modules of the port whose device seams differ from the JAX package's
 PORTED = {'__init__.py', 'ops/eval.py', 'compiler/scan.py',
           'mutate/kernel.py', 'mutate/scanner.py', 'partition/keys.py',
-          'verdictcache/keys.py', 'webhooks/handlers.py',
-          'parallel/mesh.py', 'observability/fleet.py',
-          'observability/profiling.py', 'controllers/leaderelection.py'}
+          'partition/runtime.py', 'verdictcache/keys.py',
+          'webhooks/handlers.py', 'parallel/mesh.py',
+          'observability/fleet.py', 'observability/profiling.py',
+          'observability/executables.py', 'reports/controllers.py',
+          'cmd/reports_controller.py', 'controllers/leaderelection.py'}
 #: verbatim copies whose absolute self-import was renamed, by line
 REWRITTEN = {'engine/jmespath/__init__.py': {5}}
 

@@ -493,9 +493,9 @@ def test_mesh_scan_with_partitions_stays_monolithic(monkeypatch):
     from test_torch_reference import load_pack, make_resources
     _jpols, tpols = load_pack('smoke')
     monkeypatch.setenv('KTPU_PARTITIONS', '2')
-    with pytest.raises(NotImplementedError):
-        _scanner(tpols, 16, monkeypatch, device='cpu')
+    assert _scanner(tpols, 16, monkeypatch, device='cpu')._pset is not None
     sc = _scanner(tpols, 16, monkeypatch, mesh=make_mesh(device='cpu'))
+    assert sc._pset is None and sc._composer is None
     pods = make_resources('smoke', 5, seed=1)
     monkeypatch.delenv('KTPU_PARTITIONS')
     assert _rows(sc, pods) == _rows(

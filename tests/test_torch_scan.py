@@ -197,18 +197,16 @@ def test_streaming_early_close_releases_pipeline():
     assert len(list(sc.scan_report_results(pods[:10], now=NOW))) == 10
 
 
-def test_refuses_partitions_and_mesh(monkeypatch):
-    """Partitioned compilation is still refused; a mesh no longer is
-    (``parallel/mesh.py`` is ported), and a mesh scan stays monolithic
-    under ``KTPU_PARTITIONS``, as in the reference."""
+def test_mesh_scan_stays_monolithic_under_partitions(monkeypatch):
+    """A mesh scan is monolithic under ``KTPU_PARTITIONS``, as in the
+    reference: it builds no partition runtime."""
     from kyverno_tpu_torch.compiler.scan import BatchScanner
     from kyverno_tpu_torch.parallel.mesh import make_mesh
     _jpols, tpols = load_pack('smoke')
     monkeypatch.setenv('KTPU_PARTITIONS', '2')
-    with pytest.raises(NotImplementedError):
-        BatchScanner(tpols, device='cpu')
     mesh = make_mesh(device='cpu')
-    assert BatchScanner(tpols, mesh=mesh, device='cpu').mesh is mesh
+    sc = BatchScanner(tpols, mesh=mesh, device='cpu')
+    assert sc.mesh is mesh and sc._pset is None and sc._composer is None
     monkeypatch.setenv('KTPU_PARTITIONS', '0')
     assert BatchScanner(tpols, mesh=mesh).mesh is mesh
 
