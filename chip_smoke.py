@@ -140,6 +140,31 @@ CUDA card and checks it, in phases that each print one line:
    time, Pods/s, the seconds of the daemon's passes and of the scan
    stages, launches, rescan and partition counters, the verdict cache's
    bytes on disk and the encoder pool.
+10. ``admission_daemon``: the admission-controller daemon as users start
+   it (``cmd/admission_controller.py``), in two child processes of this
+   script in turn (``--admission-child OUT``), sharing one fresh AOT
+   store (``KTPU_AOT_CACHE_DIR``) and one fresh kernel library
+   directory (``KTPU_COMPILE_CACHE``).  Each starts
+   ``AdmissionController(setup, tls=True)`` on the card over a
+   ``FakeClient`` holding the smoke pack in Enforce, the mutate pack, an
+   Audit policy and a generate policy; runs ``server.start()`` and
+   ``tick()`` from a thread of its own; polls ``/health/warmup`` over
+   HTTPS, the certificate verified against the CA secret's bundle, until
+   ready (``ready_s`` from process start; the warmer must report
+   ``compiled scanner serving``); holds K1v, K1h and K3 against their
+   plain versions on the tensors one review of each route gives them;
+   then serves 200 /validate/fail and 200 /mutate reviews, 20 compliant
+   Pods, 20 Namespace creations and 2 /policyvalidate reviews through
+   the socket, every response byte held against a host-loop handler on
+   the daemon's cache.  It fails on a Pod decision off ``sync``, a
+   breaker failure, a /mutate review not through the mutate scanner, a
+   kernel never launched, other than one UpdateRequest and (after a
+   background-controller tick) one NetworkPolicy per Namespace, other
+   than one admission report per allowed Pod, or webhook configurations
+   without that CA bundle.  The cold process must build the kernels and
+   lower and store its K1v programs; the warm one must build no kernel,
+   lower no program and load them from the store; both must answer the
+   same bytes.
 
 Every phase fails if a program of its packs is routed to the eager
 walk.  Then the seconds of each phase, one JSON line of
@@ -157,7 +182,10 @@ Run from the repository root:
     python3 chip_smoke.py [--pods N] [--seed S]
 
 (``--mesh-child RANK`` is the mode phase 4c starts its two ranks in,
-``--partitioned-child OUT`` the one phase 9 starts 9b in.)
+``--partitioned-child OUT`` the one phase 9 starts 9b in,
+``--admission-child OUT`` the one phase 10 starts its daemons in; with
+``--device cpu`` the last rehearses on the host without the kernel
+checks.)
 
 Without a CUDA card, or outside the repository, it exits non-zero and
 prints no result.  It imports nothing of JAX or of the JAX package.
@@ -174,6 +202,9 @@ import subprocess
 import sys
 import time
 
+#: when this process started, near enough (before any heavy import):
+#: phase 10's daemon processes count their readiness from here
+STARTED = time.monotonic()
 HERE = os.path.dirname(os.path.abspath(__file__))
 NOW = 1_700_000_000            # report timestamp (seconds) for the scan
 CHECK_HEAD = 2000              # rows held against the host engine, plus
@@ -2673,6 +2704,493 @@ def reports_phase(policies, pods, slice_digests, partitioned_pods: int,
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the admission-controller daemon (cmd/admission_controller.py),
+# cold and warm
+
+DAEMON_REVIEWS = 200           # /validate/fail and /mutate reviews each
+DAEMON_NAMESPACES = 20         # Namespace creations, and compliant Pods
+DAEMON_CHILD_TIMEOUT_S = 150   # each daemon process, start to end
+#: the webhook service's DNS name, which the serving pair's SANs carry
+SERVICE_HOST = 'kyverno-svc.kyverno.svc'
+
+DAEMON_POLICIES = '''
+apiVersion: kyverno.io/v1
+kind: ClusterPolicy
+metadata:
+  name: need-team
+  annotations: {pod-policies.kyverno.io/autogen-controllers: none}
+spec:
+  validationFailureAction: audit
+  rules:
+    - name: team
+      match: {any: [{resources: {kinds: [Pod]}}]}
+      validate:
+        message: team required
+        pattern: {metadata: {labels: {team: "?*"}}}
+---
+apiVersion: kyverno.io/v1
+kind: ClusterPolicy
+metadata: {name: add-np}
+spec:
+  rules:
+    - name: default-deny
+      match: {any: [{resources: {kinds: [Namespace]}}]}
+      generate:
+        apiVersion: networking.k8s.io/v1
+        kind: NetworkPolicy
+        name: default-deny
+        namespace: "{{request.object.metadata.name}}"
+        data:
+          spec: {podSelector: {}, policyTypes: [Ingress]}
+'''
+
+
+def daemon_cluster():
+    """A FakeClient holding the smoke pack in Enforce, the mutate pack,
+    an Audit policy (``need-team``) and a generate policy (``add-np``),
+    all as ClusterPolicies."""
+    import yaml
+    from kyverno_tpu_torch import smokepack
+    from kyverno_tpu_torch.dclient.client import FakeClient
+    client = FakeClient()
+    docs = [p.raw for p in smokepack.load_smoke_pack('Enforce') +
+            smokepack.load_mutate_pack()]
+    docs += list(yaml.safe_load_all(DAEMON_POLICIES))
+    for doc in docs:
+        client.create_resource('kyverno.io/v1', 'ClusterPolicy', '',
+                               dict(doc, kind='ClusterPolicy'))
+    return client
+
+
+def _policy_review(i: int, policy: dict) -> bytes:
+    return json.dumps({'apiVersion': 'admission.k8s.io/v1',
+                       'kind': 'AdmissionReview', 'request': {
+        'uid': f'policy-{i}', 'operation': 'CREATE',
+        'kind': {'group': 'kyverno.io', 'version': 'v1',
+                 'kind': 'ClusterPolicy'},
+        'object': policy, 'userInfo': {'username': 'admin'}}}).encode()
+
+
+def compliant_pod(i: int) -> dict:
+    """A Pod that every smoke-pack policy passes (the generated ones all
+    fail ``pss-restricted``, and a blocked review writes no admission
+    report); every other one carries the Audit policy's ``team``."""
+    meta = {'name': f'ok-{i}', 'namespace': f'ns-{i % 7}',
+            'labels': {'app': f'app-{i % 11}'}}
+    if i % 2:
+        meta['labels']['team'] = f'team-{i % 3}'
+    hardened = {'runAsNonRoot': True,
+                'seccompProfile': {'type': 'RuntimeDefault'}}
+    probe = {'httpGet': {'path': '/healthz', 'port': 8080}}
+    cont = {'name': 'app', 'image': f'registry.example.com/app:1.{i}.0',
+            'resources': {'requests': {'memory': '64Mi', 'cpu': '100m'},
+                          'limits': {'memory': '128Mi'}},
+            'livenessProbe': probe, 'readinessProbe': probe,
+            'securityContext': dict(hardened,
+                                    allowPrivilegeEscalation=False,
+                                    capabilities={'drop': ['ALL']})}
+    return {'apiVersion': 'v1', 'kind': 'Pod', 'metadata': meta,
+            'spec': {'securityContext': hardened, 'containers': [cont]}}
+
+
+def daemon_reviews(n: int, namespaces: int, seed: int):
+    """``n`` /validate/fail and ``n`` /mutate Pod reviews (as phase 7's),
+    ``namespaces`` compliant Pods (``compliant_pod``) and as many
+    Namespace creations on /validate/fail, and two /policyvalidate
+    reviews, one of a valid policy and one of a policy whose rule has no
+    match."""
+    import yaml
+    rng = random.Random(seed + 10)
+    out = _reviews(2 * n, seed + 10, 0)
+    out += [('/validate/fail', _review(2 * n + i, '/validate/fail',
+                                       compliant_pod(i), rng))
+            for i in range(namespaces)]
+    for i in range(namespaces):
+        ns = {'apiVersion': 'v1', 'kind': 'Namespace',
+              'metadata': {'name': f'team-{i}'}}
+        out.append(('/validate/fail', json.dumps({
+            'apiVersion': 'admission.k8s.io/v1', 'kind': 'AdmissionReview',
+            'request': {'uid': f'ns-{i}', 'operation': 'CREATE',
+                        'kind': {'group': '', 'version': 'v1',
+                                 'kind': 'Namespace'},
+                        'resource': {'group': '', 'version': 'v1',
+                                     'resource': 'namespaces'},
+                        'name': f'team-{i}', 'object': ns,
+                        'userInfo': {'username': 'admin'}}}).encode()))
+    valid = list(yaml.safe_load_all(DAEMON_POLICIES))[0]
+    invalid = json.loads(json.dumps(valid))
+    del invalid['spec']['rules'][0]['match']
+    out += [('/policyvalidate', _policy_review(0, valid)),
+            ('/policyvalidate', _policy_review(1, invalid))]
+    return out
+
+
+def _https(port: int, ca_pem: bytes, method: str, path: str,
+           body: bytes = b''):
+    """One request to the daemon on 127.0.0.1, its certificate verified
+    against ``ca_pem`` under the service's name (as the API server
+    does).  Returns (status, body)."""
+    import http.client
+    import socket
+    import ssl
+    ctx = ssl.create_default_context(cadata=ca_pem.decode())
+
+    class Conn(http.client.HTTPSConnection):
+        def connect(self):
+            sock = socket.create_connection(('127.0.0.1', port),
+                                            self.timeout)
+            self.sock = ctx.wrap_socket(sock, server_hostname=SERVICE_HOST)
+
+    conn = Conn('127.0.0.1', port, timeout=30, context=ctx)
+    try:
+        headers = {'Content-Type': 'application/json'} if body else {}
+        conn.request(method, path, body=body or None, headers=headers)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def daemon_kernel_checks(server, oracle, reviews, device) -> dict:
+    """One review of each Pod route served in-process with the kernel
+    wrappers spied on, and every captured call held against the
+    kernel's plain version on the same card tensors, with the first
+    call's time and its plain version's.  These launches come before
+    the counted pass."""
+    from kyverno_tpu_torch.ops import kernels
+    names = {'status_vm': 'k1_vm', 'fdet_select': 'k1h_fdet_select',
+             'k3_mutate': 'k3_mutate'}
+    seen = {n: [] for n in names}
+    for route in ('/validate/fail', '/mutate'):
+        body = next(b for r, b in reviews if r == route)
+        got, calls = capture_kernel_inputs(
+            lambda: server.handle(route, body), names=tuple(names))
+        if got != oracle.handle(route, body):
+            raise AssertionError(f'{route}: the captured review differs '
+                                 f'from the host loop')
+        for n, c in calls.items():
+            seen[n].extend(c)
+    pairs = {'status_vm': (kernels.status_vm,
+                           lambda packed, program: program.plain(packed)),
+             'fdet_select': (kernels.fdet_select,
+                             kernels.fdet_select_plain),
+             'k3_mutate': (kernels.k3_mutate, kernels.k3_mutate_plain)}
+    out = {}
+    for n, calls in seen.items():
+        if not calls:
+            raise AssertionError(f'{names[n]} was never called by the '
+                                 f'daemon')
+        kernel, plain = pairs[n]
+        out[names[n]] = {
+            'calls': len(calls),
+            'max_abs_err': max(_max_abs_err(kernel(*c), plain(*c))
+                               for c in calls),
+            'ms': _ms(lambda: kernel(*calls[0]), device),
+            'plain_ms': _ms(lambda: plain(*calls[0]), device, reps=3)}
+    bad = {n: r['max_abs_err'] for n, r in out.items() if r['max_abs_err']}
+    if bad:
+        raise AssertionError(f'kernels differ from their plain versions '
+                             f'under the daemon: {bad}')
+    return out
+
+
+def admission_child(args) -> int:
+    """One admission-controller process of phase 10 (cold or warm: the
+    caches in ``KTPU_AOT_CACHE_DIR`` and ``KTPU_COMPILE_CACHE`` decide).
+    Starts the daemon on ``--device``, waits for ``/health/warmup`` over
+    HTTPS, serves the reviews through the socket and checks what the
+    daemon wrote; writes its record to ``--admission-child``'s file.
+    On the CPU (``--device cpu``, a rehearsal) the kernel checks and the
+    launch counts are left out: no kernel runs there."""
+    import hashlib
+    import threading
+    import torch
+    from kyverno_tpu_torch.cmd.admission_controller import \
+        AdmissionController
+    from kyverno_tpu_torch.cmd.background_controller import \
+        BackgroundController
+    from kyverno_tpu_torch.cmd.internal import Setup
+    from kyverno_tpu_torch.compiler import aot
+    from kyverno_tpu_torch.controllers.webhook import (MUTATING_NAME,
+                                                       VALIDATING_NAME)
+    from kyverno_tpu_torch.observability import (device as devtel,
+                                                 executables, provenance,
+                                                 tracing)
+    from kyverno_tpu_torch.ops import kernels
+    from kyverno_tpu_torch.policycache import cache as pcache
+    from kyverno_tpu_torch.webhooks.handlers import ResourceHandlers
+    from kyverno_tpu_torch.webhooks.server import (PolicyHandlers,
+                                                   WebhookServer)
+    device = torch.device(args.device)
+    on_card = device.type == 'cuda'
+    if on_card and not torch.cuda.is_available():
+        _die('torch.cuda.is_available() is False')
+    problems = []
+    # seconds from process start to each step of the start-up
+    steps = {'imports': time.monotonic() - STARTED}
+    client = daemon_cluster()
+    setup = Setup('kyverno-admission-controller', ['--enable-tracing'],
+                  client=client)
+    port = _free_port()
+    steps['cluster'] = time.monotonic() - STARTED
+    daemon = AdmissionController(setup, port=port, tls=True,
+                                 device=device)
+    steps['constructed'] = time.monotonic() - STARTED
+    # run()'s parts, from a thread of this process's own
+    runner = threading.Thread(
+        target=lambda: (daemon.server.start(), daemon.tick()),
+        name='daemon-run')
+    runner.start()
+    runner.join(DAEMON_CHILD_TIMEOUT_S)
+    if runner.is_alive():
+        raise AssertionError('server.start() and tick() did not return')
+    ca = daemon.cert_renewer.ca_bundle()
+    deadline = time.monotonic() + DAEMON_CHILD_TIMEOUT_S
+    polls = 0
+    while True:
+        code, body = _https(port, ca, 'GET', '/health/warmup')
+        polls += 1
+        state = json.loads(body)['state']
+        if state == 'ready':
+            break
+        if state not in ('pending', 'warming') or \
+                time.monotonic() > deadline:
+            raise AssertionError(f'/health/warmup: {code} {body[:500]!r}')
+        time.sleep(0.02)
+    ready_s = time.monotonic() - STARTED
+    warmer = daemon.warmer
+    if not (warmer.detail or '').startswith('compiled scanner serving'):
+        problems.append(f'warmer detail {warmer.detail!r}: the daemon '
+                        f'does not serve from the device')
+    [span] = [s for s in tracing.memory_exporter().spans()
+              if s.name == 'kyverno/aot/warmer']
+    lowered = dict(executables.census().get('by_source', {}))
+    handlers = daemon.handlers
+    mutate = daemon.cache.get_policies(pcache.MUTATE, 'Pod', 'ns-0')
+    msc = None
+    while msc is None and time.monotonic() < deadline:
+        msc = handlers._device_scanner(mutate, kind='mutate')
+        time.sleep(0.02)
+    if msc is None or not msc.ok:
+        raise AssertionError(f'the mutate scanner did not come up: {msc}')
+    mutate_ready_s = time.monotonic() - STARTED
+    counter = MutateCounter(msc)
+    failures = []
+    record_failure = handlers._record_key_failure
+
+    def counting_failure(key, policies, reason):
+        failures.append(reason)
+        return record_failure(key, policies, reason)
+
+    handlers._record_key_failure = counting_failure
+    oracle = WebhookServer(
+        ResourceHandlers(daemon.cache, device=False,
+                         configuration=setup.configuration, client=client),
+        configuration=setup.configuration,
+        policy_handlers=PolicyHandlers(client))
+    reviews = daemon_reviews(args.reviews, args.namespaces, args.seed)
+    checks = daemon_kernel_checks(daemon.server, oracle, reviews, device) \
+        if on_card else {}
+    daemon.flush_audits()
+    for kind in ('AdmissionReport', 'ClusterAdmissionReport'):
+        for r in client.list_resource('kyverno.io/v1alpha2', kind, '',
+                                      None):
+            meta = r['metadata']
+            client.delete_resource('kyverno.io/v1alpha2', kind,
+                                   meta.get('namespace', ''), meta['name'])
+    # the counted pass: every review through the socket
+    rec = provenance.configure(
+        flight_n=len(reviews),
+        dump_dir=os.path.dirname(os.path.abspath(args.admission_child)))
+    counter.reset()
+    kernels.reset_launches()
+    t0 = time.monotonic()
+    got = []
+    for route, body in reviews:
+        code, resp = _https(port, ca, 'POST', route, body)
+        if code != 200:
+            raise AssertionError(f'{route}: HTTP {code} {resp[:300]!r}')
+        got.append(resp)
+    serve_s = time.monotonic() - t0
+    launches = dict(kernels.LAUNCHES)
+    paths, ns_paths = {}, {}
+    for r in rec.records():
+        into = paths if r.kind == 'Pod' else ns_paths
+        into[r.path] = into.get(r.path, 0) + 1
+    provenance.disable()
+    daemon.flush_audits()
+    mismatches = [j for j, (route, body) in enumerate(reviews)
+                  if got[j] != oracle.handle(route, body)]
+    if mismatches:
+        problems.append(f'{len(mismatches)} responses differ from the host '
+                        f'loop: {mismatches[:10]}')
+    if failures:
+        problems.append(f'breaker failures {failures[:3]}')
+    n_pod = sum(1 for r, b in reviews if r == '/validate/fail'
+                and b'"Pod"' in b)
+    if paths != {'sync': n_pod}:
+        problems.append(f'Pod decisions by path {paths}, want all '
+                        f'{n_pod} on sync')
+    # no Enforce policy matches a Namespace: the handler records those
+    # decisions, which evaluate no policy, on the host loop's path
+    if ns_paths != {'host_fallback': args.namespaces}:
+        problems.append(f'Namespace decisions by path {ns_paths}')
+    # an allowed Pod review hands the Audit policy's results to an
+    # audit thread, which writes one admission report
+    allowed_pods = sum(
+        1 for j, (r, b) in enumerate(reviews) if r == '/validate/fail'
+        and b'"Pod"' in b and json.loads(got[j])['response']['allowed'])
+    n_mut = sum(1 for r, _b in reviews if r == '/mutate')
+    if counter.rows < n_mut:
+        problems.append(f'only {counter.rows} of {n_mut} /mutate reviews '
+                        f'went through the mutate scanner')
+    if on_card:
+        missing = [k for k in ADMISSION_KERNELS if launches.get(k, 0) <= 0]
+        if missing:
+            problems.append(f'kernels never launched under the daemon: '
+                            f'{missing}')
+    policy_allowed = [json.loads(got[j])['response']['allowed']
+                      for j, (r, _b) in enumerate(reviews)
+                      if r == '/policyvalidate']
+    if policy_allowed != [True, False]:
+        problems.append(f'/policyvalidate allowed {policy_allowed}, '
+                        f'want [True, False]')
+    # the generate hand-off: one UpdateRequest per Namespace, which the
+    # background controller turns into a NetworkPolicy once the
+    # Namespace exists
+    urs = client.list_resource('kyverno.io/v1beta1', 'UpdateRequest',
+                               'kyverno', None)
+    for i in range(args.namespaces):
+        client.create_resource('v1', 'Namespace', '', {
+            'apiVersion': 'v1', 'kind': 'Namespace',
+            'metadata': {'name': f'team-{i}'}})
+    BackgroundController(setup).tick()
+    nps = sum(len(client.list_resource('networking.k8s.io/v1',
+                                       'NetworkPolicy', f'team-{i}', None))
+              for i in range(args.namespaces))
+    if len(urs) != args.namespaces or nps != args.namespaces:
+        problems.append(f'{len(urs)} UpdateRequests and {nps} '
+                        f'NetworkPolicies for {args.namespaces} Namespaces')
+    reports = len(client.list_resource('kyverno.io/v1alpha2',
+                                       'AdmissionReport', '', None))
+    if reports != allowed_pods:
+        problems.append(f'{reports} admission reports for {allowed_pods} '
+                        f'allowed Pod reviews under the Audit policy')
+    bundles = []
+    for kind, name in (('ValidatingWebhookConfiguration', VALIDATING_NAME),
+                       ('MutatingWebhookConfiguration', MUTATING_NAME)):
+        cfg = client.get_resource('admissionregistration.k8s.io/v1', kind,
+                                  '', name)
+        bundles += [w['clientConfig']['caBundle'] for w in cfg['webhooks']]
+    import base64
+    if not bundles or set(bundles) != {base64.b64encode(ca).decode()}:
+        problems.append('the webhook configurations do not carry the CA '
+                        'bundle that verified the connection')
+    C = devtel.COMPILE_CACHE_REQUESTS
+    aot.flush_stores()
+    # no scanner build may still be inside a torch op at exit
+    while handlers._building and time.monotonic() < deadline:
+        time.sleep(0.05)
+    if handlers._building:
+        problems.append(f'scanner builds still running: '
+                        f'{handlers._building}')
+    daemon.close()
+    setup.shutdown()
+    digest = hashlib.sha256(b''.join(
+        hashlib.sha256(r).digest() for r in got)).hexdigest()
+    steps['warm_up'] = warmer.duration_s
+    out = {'device': str(device), 'ready_s': ready_s,
+           'start_up_s': steps, 'mutate_ready_s': mutate_ready_s,
+           'warmup_polls': polls, 'warmer': {
+               'detail': warmer.detail, 'duration_s': warmer.duration_s,
+               'attributes': dict(span.attributes)},
+           'lowered_by_source': lowered,
+           'compile_cache': {r: setup.metrics.counter_value(C, result=r)
+                             for r in ('miss', 'aot_load', 'aot_store')},
+           'reviews': len(reviews), 'serve_s': serve_s,
+           'requests_per_s': len(reviews) / serve_s,
+           'validate_paths': paths, 'launches': launches,
+           'mutate': counter.stats(), 'kernel_checks': checks,
+           'update_requests': len(urs), 'network_policies': nps,
+           'admission_reports': reports, 'allowed_pod_reviews': allowed_pods,
+           'ca_bundles': len(bundles),
+           'responses_digest': digest, 'mismatches': len(mismatches),
+           'problems': problems}
+    with open(args.admission_child, 'w') as f:
+        json.dump(out, f)
+    return 0
+
+
+def admission_daemon_phase(seed: int, tmp: str, device: str = 'cuda:0',
+                           reviews: int = DAEMON_REVIEWS,
+                           namespaces: int = DAEMON_NAMESPACES) -> dict:
+    """Phase 10: the admission daemon in two processes of this script in
+    turn, sharing one fresh AOT store and one fresh kernel library
+    directory: the cold one builds the kernels and lowers and stores its
+    K1v programs, the warm one must build and lower nothing and load
+    its programs.  Both must serve the same bytes."""
+    env = dict(os.environ, KTPU_AOT='1', KTPU_WARM='1',
+               KTPU_AOT_CACHE_DIR=os.path.join(tmp, 'aot'),
+               KTPU_COMPILE_CACHE=os.path.join(tmp, 'lib'))
+    runs = {}
+    for name in ('cold', 'warm'):
+        out_path = os.path.join(tmp, f'{name}.json')
+        logs = (os.path.join(tmp, f'{name}.out'),
+                os.path.join(tmp, f'{name}.err'))
+        cmd = [sys.executable, os.path.abspath(__file__), '--seed',
+               str(seed), '--device', device, '--reviews', str(reviews),
+               '--namespaces', str(namespaces), '--admission-child',
+               out_path]
+        t0 = time.monotonic()
+        with open(logs[0], 'w') as out, open(logs[1], 'w') as err:
+            child = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=out,
+                                     stderr=err)
+        try:
+            child.wait(timeout=DAEMON_CHILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            child.wait()
+        if child.returncode != 0 or not os.path.exists(out_path):
+            with open(logs[1]) as err:
+                tail = err.read()[-3000:]
+            raise AssertionError(
+                f'the {name} admission daemon exited {child.returncode} '
+                f'(killed past {DAEMON_CHILD_TIMEOUT_S} s if negative):\n'
+                f'{tail}')
+        with open(out_path) as f:
+            runs[name] = dict(json.load(f), wall_s=time.monotonic() - t0)
+    cold, warm = runs['cold'], runs['warm']
+    problems = [f'{name}: {p}' for name, r in runs.items()
+                for p in r['problems']]
+    on_card = device.startswith('cuda')
+    built = {name: r['warmer']['attributes'].get('kernels_built', 0)
+             for name, r in runs.items()}
+    if on_card and (built['cold'] < 1 or built['warm'] != 0):
+        problems.append(f'kernels built {built}: the cold daemon must '
+                        f'build them and the warm one none')
+    fresh = {name: r['lowered_by_source'].get('fresh_compile', 0)
+             for name, r in runs.items()}
+    if fresh['cold'] < 1 or cold['compile_cache']['aot_store'] < 1:
+        problems.append(f'the cold daemon lowered {fresh["cold"]} and '
+                        f'stored {cold["compile_cache"]["aot_store"]} '
+                        f'programs')
+    if fresh['warm'] != 0 or \
+            warm['lowered_by_source'].get('aot_load', 0) < 1:
+        problems.append(f'the warm daemon lowered {fresh["warm"]} and '
+                        f'loaded {warm["lowered_by_source"]} programs')
+    if cold['responses_digest'] != warm['responses_digest']:
+        problems.append('the cold and warm daemons answered differently')
+    return {'cold': cold, 'warm': warm, 'problems': problems}
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
@@ -2686,9 +3204,17 @@ def main(argv=None) -> int:
     ap.add_argument('--step-rows', type=int, default=MESH_CHILD_STEP_ROWS,
                     help='(--mesh-child) Pods of the distributed step')
     ap.add_argument('--device', default='cuda:0',
-                    help='(--mesh-child) the rank\'s device')
+                    help='(--mesh-child, --admission-child) the device')
     ap.add_argument('--partitioned-child', metavar='OUT',
                     help='run phase 9b and write its result to OUT')
+    ap.add_argument('--admission-child', metavar='OUT',
+                    help='run one admission daemon of phase 10 and write '
+                         'its result to OUT')
+    ap.add_argument('--reviews', type=int, default=DAEMON_REVIEWS,
+                    help='(--admission-child) /validate/fail and /mutate '
+                         'reviews each')
+    ap.add_argument('--namespaces', type=int, default=DAEMON_NAMESPACES,
+                    help='(--admission-child) Namespace creations')
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, 'kyverno_tpu_torch')):
         _die('kyverno_tpu_torch/ is not beside this script; run it from a '
@@ -2700,6 +3226,8 @@ def main(argv=None) -> int:
         return mesh_child(args)
     if args.partitioned_child:
         return partitioned_child(args)
+    if args.admission_child:
+        return admission_child(args)
     import torch
     if not torch.cuda.is_available():
         _die('torch.cuda.is_available() is False: this script measures '
@@ -2854,6 +3382,21 @@ def main(argv=None) -> int:
     if rp['problems']:
         raise AssertionError('reports: ' + '; '.join(rp['problems']))
     phase_done('reports')
+
+    # 10. the admission-controller daemon, cold and warm ----------------
+    with tempfile.TemporaryDirectory(prefix='ktpu-daemon-') as tmp:
+        ad = admission_daemon_phase(args.seed, tmp)
+    print('admission_daemon ' + json.dumps({name: {k: ad[name][k] for k in (
+        'ready_s', 'start_up_s', 'mutate_ready_s', 'wall_s', 'warmer',
+        'lowered_by_source', 'compile_cache', 'reviews', 'serve_s',
+        'requests_per_s', 'validate_paths', 'launches', 'kernel_checks',
+        'update_requests', 'network_policies', 'admission_reports',
+        'mismatches')} for name in ('cold', 'warm')}), flush=True)
+    report['admission_daemon'] = ad
+    if ad['problems']:
+        raise AssertionError('admission daemon: ' +
+                             '; '.join(ad['problems']))
+    phase_done('admission_daemon')
     for r in records:
         # K1v, K1h, K1c and K3 are held at the admission webhook's shapes:
         # its launches, and the times and bound of the kernel at the
@@ -2882,6 +3425,8 @@ def main(argv=None) -> int:
             'partitioned': sum(
                 rp['partitioned'][t]['launches'].get(r['name'], 0)
                 for t in ('cold', 'edit')),
+            # the warm daemon's counted pass, its programs from the store
+            'admission_daemon': ad['warm']['launches'].get(r['name'], 0),
             # the eager walks that hold K1v against its plain version
             # (K1c runs only there: on the main path its DP is in K1v)
             'k1v_checks': chunk_stats['k1v_check']['capture_launches'].get(

@@ -1,17 +1,22 @@
 """Build and load the hand-written CUDA kernels under ``csrc/``.
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled on
-first use by ``nvcc`` into its own shared library under
-``kyverno_tpu_torch/_build/`` (named by a digest of the source, the
-``csrc/*.cuh`` headers it includes and the flags, so an edited source or
-header never loads a stale build), then bound with ``ctypes``.  ``build_all`` compiles every source at once, one ``nvcc``
-process per file, so the build costs the slowest file, not the sum.
-Nothing here runs at import time.
+first use by ``nvcc`` into its own shared library under the build
+directory (``build_dir``: ``KTPU_COMPILE_CACHE`` when that is set, else
+``kyverno_tpu_torch/_build/``), named by a digest of the source, the
+``csrc/*.cuh`` headers it includes, the flags and the compiler's
+``--version``, so an edited source or header, or another toolkit, never
+loads a stale build; then bound with ``ctypes``.  ``build_all`` compiles
+every source at once, one ``nvcc`` process per file, so the build costs
+the slowest file, not the sum.  Processes may share one directory: each
+writes its library and its log under names of its own and renames them
+into place.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -59,6 +64,21 @@ _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
+@functools.lru_cache(maxsize=None)
+def _scoped(pinned: str) -> str:
+    from ..aotcache.keys import verify_cache_feature_scope
+    os.makedirs(pinned, exist_ok=True)
+    return verify_cache_feature_scope(pinned)[0]
+
+
+def build_dir() -> str:
+    """Where the libraries are built and looked for: ``KTPU_COMPILE_CACHE``
+    when set (past ``aotcache/keys.py``'s host-feature guard), else
+    ``kyverno_tpu_torch/_build/``."""
+    pinned = os.environ.get('KTPU_COMPILE_CACHE')
+    return _scoped(pinned) if pinned else BUILD_DIR
+
+
 def nvcc_path() -> str:
     """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH,
     else ``/usr/local/cuda/bin/nvcc``."""
@@ -99,24 +119,46 @@ def sources(name: str, csrc: str = CSRC) -> list:
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _version_of(nvcc: str) -> str:
+    return subprocess.run([nvcc, '--version'], capture_output=True,
+                          text=True, check=True).stdout
+
+
+def nvcc_version() -> str:
+    """``nvcc --version`` of the compiler ``build_all`` runs, read once
+    per process; '' where there is none (no build can then be made)."""
+    try:
+        return _version_of(nvcc_path())
+    except RuntimeError:
+        return ''
+
+
+
 def library_path(name: str, csrc: str = CSRC) -> str:
     """The build of ``name``, named by a digest of its source, the
-    headers it includes and the flags."""
-    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    headers it includes, the flags and the compiler's version."""
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode() + b'\0' +
+                            nvcc_version().encode())
     for path in sources(name, csrc):
         with open(path, 'rb') as f:
             digest.update(os.path.basename(path).encode() + b'\0' +
                           f.read())
-    return os.path.join(BUILD_DIR, f'{name}-{digest.hexdigest()[:16]}.so')
+    return os.path.join(build_dir(), f'{name}-{digest.hexdigest()[:16]}.so')
+
+
+def _log_path(library: str) -> str:
+    """The compiler's output of the build that made ``library``."""
+    return os.path.splitext(library)[0] + '.log'
 
 
 def _start(name: str, nvcc: str) -> Optional[tuple]:
     out = library_path(name)
     if os.path.exists(out):
         return None
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f'{out}.{os.getpid()}.{threading.get_ident()}.tmp'
-    log = open(os.path.join(BUILD_DIR, f'{name}.log'), 'w')
+    log = open(f'{tmp}.log', 'w')
     proc = subprocess.Popen([nvcc, *NVCC_FLAGS, '-o', tmp, _source(name)],
                             stdout=log, stderr=subprocess.STDOUT)
     return proc, tmp, out, log
@@ -143,11 +185,12 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
             if rc != 0:
                 failed.append(n)
                 continue
+            os.replace(log.name, _log_path(out))
             os.replace(tmp, out)
         if failed:
             msgs = []
             for n in failed:
-                with open(os.path.join(BUILD_DIR, f'{n}.log')) as f:
+                with open(jobs[n][3].name) as f:
                     msgs.append(f'{n}:\n{f.read()[-4000:]}')
             raise RuntimeError('nvcc failed for ' + ', '.join(failed) +
                                '\n' + '\n'.join(msgs))
@@ -155,9 +198,10 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
 
 
 def build_log(name: str) -> str:
-    """The compiler's output of the last build of ``name`` (ptxas
-    register and spill counts)."""
-    path = os.path.join(BUILD_DIR, f'{name}.log')
+    """The compiler's output of the build of ``name`` that ``load``
+    binds (ptxas register and spill counts), whichever process made
+    it."""
+    path = _log_path(library_path(name))
     if not os.path.exists(path):
         return ''
     with open(path) as f:

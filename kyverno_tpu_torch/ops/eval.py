@@ -55,6 +55,7 @@ from ..engine.operators import _sprint
 from ..utils.duration import parse_duration
 from ..utils.quantity import Quantity
 
+from ..aotcache.keys import policy_set_fingerprint  # noqa: F401 (re-export)
 from ..device import resolve_device
 # the per-row admission lanes ride every non-mesh dispatch of a policy
 # set with at least one admission-dependent eligible rule, zero-filled
@@ -1206,21 +1207,6 @@ def cond_tf(t: Dict[str, Any], prefix: str, check: CondCheck) -> _K:
     raise ValueError(f'condition op {op!r} not supported on device')
 
 
-# ---------------------------------------------------------------------------
-# evaluator assembly.  Torch runs the program eagerly, so there is no
-# compiled executable to persist: the scanner's policy-set fingerprint
-# (decision provenance) is the only cache-key helper left, kept here
-# because this module historically owned it.
-
-def policy_set_fingerprint(policies) -> str:
-    """Stable digest of a policy set's raw documents."""
-    import hashlib
-    payload = _json.dumps([getattr(p, 'raw', p) for p in policies],
-                          sort_keys=True, separators=(',', ':'),
-                          default=str)
-    return hashlib.sha256(payload.encode()).hexdigest()[:20]
-
-
 def _adm_member2(lanes2d, ids):
     """∃ lane value ∈ ids over a [R, W] id lane (ids are static interned
     operand ids ≥ 0; -1 marks absent/out-of-vocabulary lane slots)."""
@@ -1847,12 +1833,18 @@ def build_evaluator(cps: CompiledPolicySet, device=None):
 
     class LayoutPlan:
         """What a call needs of one pack layout: K1v's program (None
-        without K1v trees or admission entries), and the split of the
-        lanes into the special ones (row validity, match plane,
+        without K1v trees or admission entries; ``program`` when one was
+        loaded from the AOT store, else lowered here), and the split of
+        the lanes into the special ones (row validity, match plane,
         admission lanes), which no status tree reads, and the status
         trees' own."""
 
-        def __init__(self, layout):
+        #: where the program came from: 'fresh_compile' or 'aot_load'
+        source = 'fresh_compile'
+        #: the program's AOT store key (None: not persisted)
+        aot_key: Optional[str] = None
+
+        def __init__(self, layout, program=None):
             special = {'__rowvalid__', '__match__', *ADM_LANES}
             self.special = [(name, e) for name, e in layout.items()
                             if name in special]
@@ -1866,8 +1858,9 @@ def build_evaluator(cps: CompiledPolicySet, device=None):
             self.rowvalid_at = layout['__rowvalid__'][:2] \
                 if '__rowvalid__' in layout else None
             with_adm = adm_table is not None and vm.has_adm_lanes(layout)
-            self.program = vm.lower(vm_info, vm_trees, layout) \
-                if vm_trees or with_adm else None
+            if program is None and (vm_trees or with_adm):
+                program = vm.lower(vm_info, vm_trees, layout)
+            self.program = program
             if self.program is not None:
                 def plain(packed, plan=self):
                     # K1v's plain version: the eager walk of its trees
@@ -1916,39 +1909,78 @@ def build_evaluator(cps: CompiledPolicySet, device=None):
     # order (pack_batch lays out one signature in one order)
     plans: Dict[Any, Any] = {}
     plans_lock = threading.Lock()
-    # the executable ledger tags each K1v program with the fingerprint
-    # of the policies this evaluator compiles: the whole set, or one
-    # partition's members under KTPU_PARTITIONS (partition/keys.py),
-    # which is what lets partition/census.py attribute programs
+    # the executable ledger and the AOT store key each K1v program by the
+    # fingerprint of the policies this evaluator compiles: the whole set,
+    # or one partition's members under KTPU_PARTITIONS
+    # (partition/keys.py), which is what lets partition/census.py
+    # attribute programs
     from ..partition.keys import compile_fingerprint
     fingerprint = compile_fingerprint(cps)
 
-    def plan_for(layout) -> LayoutPlan:
+    def plan_for(layout, packed=None) -> LayoutPlan:
+        """The plan of ``layout``: from memory, else with its K1v program
+        loaded from the AOT store, else lowered (and stored).  The store
+        is consulted only when ``packed``, a batch of the layout, gives
+        its key, and the load runs outside ``plans_lock``, which every
+        call of a planned layout passes."""
         sig = tuple(layout.items())
         plan = plans.get(sig)
         if plan is not None:
             return plan
+        from ..compiler import aot
+        from ..observability import device as devtel
+        from ..observability import executables as exectel
+        # besides the layout, the key holds what else decides the
+        # program: the trees routed to K1v (their limits are read when
+        # the evaluator is built) and the lowering's settings now
+        key = None if packed is None else aot.executable_cache_key(
+            fingerprint, packed,
+            extra=(repr(sig), tuple(vm_trees), vm.settings()))
+        loaded, load_s = None, 0.0
+        if key is not None:
+            t0 = time.monotonic()
+            loaded = aot.load_executable(key)
+            load_s = time.monotonic() - t0
         with plans_lock:
             plan = plans.get(sig)
-            if plan is None:
-                if len(plans) > 128:
-                    plans.clear()
-                t0 = time.monotonic()
-                plan = LayoutPlan(layout)
-                build_s = time.monotonic() - t0
-                plan.ledger_key = hashlib.sha256(repr(
-                    (fingerprint, str(device), fdet_k, sig)).encode()
-                ).hexdigest()
-                plans[sig] = plan
-                from ..observability import executables as exectel
-                if plan.program is not None and exectel.enabled():
-                    # a K1v program serves every row count of its
-                    # layout: the record has no capacity
-                    exectel.record_build(
-                        plan.ledger_key, fingerprint=fingerprint,
-                        source='fresh_compile', build_s=build_s,
-                        compiled=plan.program)
+            if plan is not None:
+                return plan
+            if len(plans) > 128:
+                plans.clear()
+            t0 = time.monotonic()
+            plan = LayoutPlan(layout, loaded)
+            build_s = time.monotonic() - t0
+            plan.aot_key = key
+            plan.ledger_key = key or hashlib.sha256(repr(
+                (fingerprint, str(device), fdet_k, sig)).encode()
+            ).hexdigest()
+            if loaded is not None:
+                plan.source, build_s = 'aot_load', load_s + build_s
+                devtel.record_cache('aot_load')
+            elif plan.program is not None:
+                devtel.record_cache('miss')
+                if key is not None:
+                    aot.store_executable_async(key, plan.program)
+                    devtel.record_cache('aot_store')
+            plans[sig] = plan
+            if plan.program is not None and exectel.enabled():
+                # a K1v program serves every row count of its layout:
+                # the record has no capacity
+                exectel.record_build(
+                    plan.ledger_key, fingerprint=fingerprint,
+                    source=plan.source, build_s=build_s,
+                    compiled=plan.program)
         return plan
+
+    def evict(plan: LayoutPlan) -> None:
+        """Drop a loaded program whose launch failed, from memory and
+        from the store, so the next call lowers afresh."""
+        from ..compiler import aot
+        with plans_lock:
+            for sig, p in list(plans.items()):
+                if p is plan:
+                    del plans[sig]
+        aot.evict_executable(plan.aot_key, reason='execute_failed')
 
     def evaluate_unique(packed: Dict[str, torch.Tensor], plan: LayoutPlan):
         """Unique-space (s_u, d_u, fdet_u), aux channels past n_uniq,
@@ -1961,7 +1993,12 @@ def build_evaluator(cps: CompiledPolicySet, device=None):
         program = plan.program
         if program is not None:
             with torch.profiler.record_function('k1v_status_vm'):
-                out = kernels.status_vm(packed, program)
+                try:
+                    out = kernels.status_vm(packed, program)
+                except Exception:
+                    if plan.source == 'aot_load':
+                        evict(plan)
+                    raise
         else:
             out = outputs(rows, dev, True) + (
                 torch.empty((rows, 0), dtype=torch.int8, device=dev),)
@@ -1975,7 +2012,7 @@ def build_evaluator(cps: CompiledPolicySet, device=None):
         """Program-space evaluation (raw consumers: the mesh paths):
         unique results expanded by a device-side column gather."""
         s_u, d_u, fdet_u, _adm = evaluate_unique(
-            packed, plan if plan is not None else plan_for(layout))
+            packed, plan if plan is not None else plan_for(layout, packed))
         if n_uniq == 0 or expand_identity:
             return s_u, d_u, fdet_u
         with _consts():
@@ -2037,7 +2074,7 @@ def build_evaluator(cps: CompiledPolicySet, device=None):
         from ..observability import executables as exectel
         with devtel.stage('device_eval') as st:
             _stamp_coverage(st)
-            plan = plan_for(layout)
+            plan = plan_for(layout, packed)
             if not exectel.enabled():
                 return evaluate_packed(packed, layout, plan)
             # the host time of the dispatch: the call returns before

@@ -149,6 +149,17 @@ STAGE_BYTES = 96 * 1024
 #: bytes of one part's slot: a K1vmStatus
 SLOT_BYTES = 8
 
+#: the settings above that a lowering reads: a stored program is valid
+#: only under the values it was lowered with (``settings``)
+SETTINGS = ('KSTACK', 'SSTACK', 'LOCALS', 'FRAMES', 'LEVELS', 'MAX_PATTERN',
+            'MAX_WINDOW', 'TILE_ROWS', 'GROUP_WARPS', 'PART_INSNS',
+            'GROUP_INSNS', 'STAGE_BYTES', 'SLOT_BYTES')
+
+
+def settings() -> Tuple[int, ...]:
+    """The current values of ``SETTINGS``, in that order."""
+    return tuple(globals()[name] for name in SETTINGS)
+
 _BYTE_LANES = frozenset({'str_head', 'str_tail'})
 _CONV = (TAG_STRING, TAG_INT, TAG_FLOAT, TAG_BOOL)
 

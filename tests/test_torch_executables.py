@@ -25,8 +25,16 @@ from kyverno_tpu_torch.partition import census
 
 
 @pytest.fixture(autouse=True)
-def _clean_modules():
+def _clean_modules(tmp_path, monkeypatch):
+    # a store of this test's own: programs that another process stored
+    # in the shared default directory would load here as ``aot_load``
+    from kyverno_tpu_torch.aotcache.store import reset_default_store
+    monkeypatch.setenv('KTPU_AOT_CACHE_DIR', str(tmp_path / 'aot'))
+    reset_default_store()
     yield
+    from kyverno_tpu_torch.compiler import aot
+    aot.flush_stores()
+    reset_default_store()
     executables.disable()
     tracing.disable()
     census.reset()

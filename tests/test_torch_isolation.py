@@ -25,7 +25,9 @@ PORTED = {'__init__.py', 'ops/eval.py', 'compiler/scan.py',
           'webhooks/handlers.py', 'parallel/mesh.py',
           'observability/fleet.py', 'observability/profiling.py',
           'observability/executables.py', 'reports/controllers.py',
-          'cmd/reports_controller.py', 'controllers/leaderelection.py'}
+          'cmd/reports_controller.py', 'controllers/leaderelection.py',
+          'aotcache/keys.py', 'compiler/aot.py',
+          'cmd/admission_controller.py'}
 #: verbatim copies whose absolute self-import was renamed, by line
 REWRITTEN = {'engine/jmespath/__init__.py': {5}}
 
@@ -228,6 +230,31 @@ def test_chip_smoke_mesh_children_run_with_jax_blocked(tmp_path):
     for key in ('summary', 'statuses', 'row_digest'):
         assert r0[key] == r1[key], key
     assert r0['pods'] == 49 and r0['step_rows'] == 32
+
+
+def test_chip_smoke_admission_daemon_runs_with_jax_blocked(tmp_path):
+    """One admission-daemon process of ``chip_smoke.py``'s phase 10
+    (``cmd/admission_controller.py`` with TLS, its AOT store, the
+    generate hand-off and the audit reports), run here on the CPU at a
+    tiny size with the import blocker: it imports nothing of JAX and
+    its checks pass."""
+    env = dict(os.environ)
+    env.pop('PYTHONPATH', None)
+    env.update({'KTPU_AOT_CACHE_DIR': str(tmp_path / 'aot'),
+                'KTPU_COMPILE_CACHE': str(tmp_path / 'lib')})
+    out = tmp_path / 'daemon.json'
+    proc = subprocess.run(
+        [sys.executable, '-c', _CHILD_MESH, ROOT, '--device', 'cpu',
+         '--reviews', '4', '--namespaces', '2', '--admission-child',
+         str(out)], capture_output=True, text=True, timeout=240, cwd=ROOT,
+        env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert 'ISOLATED-OK' in proc.stdout
+    rec = json.loads(out.read_text())
+    assert rec['problems'] == [] and rec['mismatches'] == 0
+    assert rec['lowered_by_source'] == {'fresh_compile': 1}
+    assert (rec['update_requests'], rec['network_policies'],
+            rec['admission_reports']) == (2, 2, 2)
 
 
 def test_engine_rev_digests_the_ports_own_sources():
