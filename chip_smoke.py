@@ -32,8 +32,8 @@ CUDA card and checks it, in phases that each print one line:
    its bound uses, and its time with every block in the global mode.
 3. ``slice``: ``scan_report_results`` over ``--pods`` Pods (100,000
    is a large production cluster; the default is cut to 3 chunks + 1,
-   49,153, so that phase 9 fits the time limit) with the smoke pack's 12
-   policies: Pods/s, decisions/s, the stage breakdown, the
+   49,153, so that the script fits the time limit) with the smoke pack's
+   12 policies: Pods/s, decisions/s, the stage breakdown, the
    device-decided fraction, each kernel's launches during the scan
    (K1v and K1h must launch, K1v once per chunk) and the encoder pool's
    state.  The first 2,000
@@ -118,10 +118,12 @@ CUDA card and checks it, in phases that each print one line:
 9. ``reports``, ``partitioned``: the reports-controller daemon,
    ``ReportsController(Setup('kyverno-reports-controller', [],
    client=FakeClient()))``, its own ``tick()`` driven directly over a
-   client holding the smoke pack as ClusterPolicies and the Pods, the
-   verdict cache in a fresh temporary directory; (b) runs in a child
-   process of this script (``--partitioned-child OUT``) while (a) runs
-   here, each on the card.  (a) Whole set
+   client holding the smoke pack as ClusterPolicies and the first
+   ``--reports-pods`` Pods of phase 3 (default one chunk + 1, 16,385, cut
+   from 100,000 so that phase 11 fits the time limit), the verdict cache
+   in a fresh temporary directory; (b) runs in a child process of this
+   script (``--partitioned-child OUT``) while (a) runs here, each on the
+   card.  (a) Whole set
    (``KTPU_PARTITIONS=0``) over every Pod: a cold tick (one report per
    Pod, rows equal to the slice phase's and, on the first 2,000 and
    the last chunk, to the host engine's; K1v and K1h once per chunk, the
@@ -165,6 +167,30 @@ CUDA card and checks it, in phases that each print one line:
    lower and store its K1v programs; the warm one must build no kernel,
    lower no program and load them from the store; both must answer the
    same bytes.
+11. ``restart``: the daemons against an API server over HTTP, then
+   restarted on the state they left.  This process serves the port's
+   ``FakeApiServer`` on 127.0.0.1, holding phase 10's policies and the
+   first 4,096 Pods of phase 3 in their Namespaces, with every kind of
+   ``API_KINDS`` registered; two child processes of this script in turn
+   (``--restart-child FIRST|SECOND OUT --api-server URL``) share one
+   fresh AOT store, kernel library directory and verdict cache, and
+   each gives every daemon an ``HTTPClient`` of its own.  Each runs the
+   reports daemon's ``tick()`` (one report per Pod, 1,000 rows held
+   against the host engine, every policy label of its reports and of the
+   aggregated PolicyReports equal to the policy's current resourceVersion
+   on the server), then the admission daemon as in phase 10 (100 + 100
+   reviews, 10 compliant Pods, 10 Namespace creations, 2
+   /policyvalidate; K1v, K1h and K3 held against their plain versions;
+   every response byte against the host loop), then ticks it (the
+   reconciler writes each policy's status), serves 10 more compliant
+   Pods and holds the policy labels of their admission reports against
+   the server's current resourceVersions.  Between the processes every
+   ClusterPolicy must carry status.  The restarted process must build no
+   kernel, lower no K1v program and load one, replay every report row
+   under the first one's cache generation with no launch, and write the
+   first one's reports but for the policy labels.  The line gives per
+   process the readiness, the program cache, the serving rate, the
+   reports tick and the requests the server answered, by verb and kind.
 
 Every phase fails if a program of its packs is routed to the eager
 walk.  Then the seconds of each phase, one JSON line of
@@ -179,13 +205,14 @@ last line ``{"ok": true, "device": {...}}``.  A full report goes to
 
 Run from the repository root:
 
-    python3 chip_smoke.py [--pods N] [--seed S]
+    python3 chip_smoke.py [--pods N] [--reports-pods N] [--seed S]
 
 (``--mesh-child RANK`` is the mode phase 4c starts its two ranks in,
 ``--partitioned-child OUT`` the one phase 9 starts 9b in,
-``--admission-child OUT`` the one phase 10 starts its daemons in; with
-``--device cpu`` the last rehearses on the host without the kernel
-checks.)
+``--admission-child OUT`` the one phase 10 starts its daemons in,
+``--restart-child FIRST|SECOND OUT --api-server URL`` the one phase 11
+starts its processes in; with ``--device cpu`` the last two rehearse on
+the host without the kernel checks.)
 
 Without a CUDA card, or outside the repository, it exits non-zero and
 prints no result.  It imports nothing of JAX or of the JAX package.
@@ -2331,6 +2358,7 @@ def restricted_phase(scanner, policies, pods, device, seed) -> dict:
 #: the ClusterPolicy whose rule message the edit tick changes (a
 #: partition of its own under KTPU_PARTITIONS=4)
 REPORTS_EDIT = 'require-resources'
+REPORTS_PODS = 16384 + 1        # one chunk + 1: a tick crosses a boundary
 REPORTS_PARTITIONS = 4          # KTPU_PARTITIONS of the partitioned ticks
 REPORTS_CHECK = 1000            # edit-tick rows held against the host engine
 REPORTS_CHILD_TIMEOUT_S = 900  # the partitioned ticks' process
@@ -2903,20 +2931,54 @@ def daemon_kernel_checks(server, oracle, reviews, device) -> dict:
 
 def admission_child(args) -> int:
     """One admission-controller process of phase 10 (cold or warm: the
-    caches in ``KTPU_AOT_CACHE_DIR`` and ``KTPU_COMPILE_CACHE`` decide).
-    Starts the daemon on ``--device``, waits for ``/health/warmup`` over
-    HTTPS, serves the reviews through the socket and checks what the
-    daemon wrote; writes its record to ``--admission-child``'s file.
-    On the CPU (``--device cpu``, a rehearsal) the kernel checks and the
-    launch counts are left out: no kernel runs there."""
+    caches in ``KTPU_AOT_CACHE_DIR`` and ``KTPU_COMPILE_CACHE`` decide)
+    over a fresh ``FakeClient`` cluster (``daemon_cluster``); writes its
+    record (``admission_daemon_run``) to ``--admission-child``'s file."""
+    import torch
+    from kyverno_tpu_torch.cmd.internal import Setup
+    device = torch.device(args.device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        _die('torch.cuda.is_available() is False')
+    # seconds from process start to each step of the start-up
+    steps = {'imports': time.monotonic() - STARTED}
+    client = daemon_cluster()
+    setup = Setup('kyverno-admission-controller', ['--enable-tracing'],
+                  client=client)
+    steps['cluster'] = time.monotonic() - STARTED
+    out = admission_daemon_run(
+        setup, device, daemon_reviews(args.reviews, args.namespaces,
+                                      args.seed),
+        args.namespaces, os.path.dirname(os.path.abspath(
+            args.admission_child)), steps)
+    with open(args.admission_child, 'w') as f:
+        json.dump(out, f)
+    return 0
+
+
+def admission_daemon_run(setup, device, reviews, namespaces: int,
+                         dump_dir: str, steps: dict,
+                         restart: bool = False) -> dict:
+    """One admission daemon over ``setup.client`` (phases 10 and 11).
+    Starts it on ``device``, waits for ``/health/warmup`` over HTTPS,
+    serves ``reviews`` through the socket and checks what the daemon
+    wrote; returns its record, with the problems found.  On the CPU
+    (``device`` cpu, a rehearsal) the kernel checks and the launch counts
+    are left out: no kernel runs there.
+
+    Phase 10 (``restart`` false) then creates the Namespaces and runs
+    the background controller, which must generate one NetworkPolicy
+    each.  Phase 11 (``restart``) instead ticks the daemon again, so the
+    reconciler writes each policy's status, serves ``namespaces`` more
+    compliant Pods, and holds the policy labels of their admission
+    reports against the server's current resourceVersions; then it
+    deletes the admission reports it wrote, so that the next process's
+    reports daemon meets the Pods' state alone."""
     import hashlib
     import threading
-    import torch
     from kyverno_tpu_torch.cmd.admission_controller import \
         AdmissionController
     from kyverno_tpu_torch.cmd.background_controller import \
         BackgroundController
-    from kyverno_tpu_torch.cmd.internal import Setup
     from kyverno_tpu_torch.compiler import aot
     from kyverno_tpu_torch.controllers.webhook import (MUTATING_NAME,
                                                        VALIDATING_NAME)
@@ -2928,18 +2990,10 @@ def admission_child(args) -> int:
     from kyverno_tpu_torch.webhooks.handlers import ResourceHandlers
     from kyverno_tpu_torch.webhooks.server import (PolicyHandlers,
                                                    WebhookServer)
-    device = torch.device(args.device)
     on_card = device.type == 'cuda'
-    if on_card and not torch.cuda.is_available():
-        _die('torch.cuda.is_available() is False')
+    client = setup.client
     problems = []
-    # seconds from process start to each step of the start-up
-    steps = {'imports': time.monotonic() - STARTED}
-    client = daemon_cluster()
-    setup = Setup('kyverno-admission-controller', ['--enable-tracing'],
-                  client=client)
     port = _free_port()
-    steps['cluster'] = time.monotonic() - STARTED
     daemon = AdmissionController(setup, port=port, tls=True,
                                  device=device)
     steps['constructed'] = time.monotonic() - STARTED
@@ -2995,20 +3049,22 @@ def admission_child(args) -> int:
                          configuration=setup.configuration, client=client),
         configuration=setup.configuration,
         policy_handlers=PolicyHandlers(client))
-    reviews = daemon_reviews(args.reviews, args.namespaces, args.seed)
     checks = daemon_kernel_checks(daemon.server, oracle, reviews, device) \
         if on_card else {}
-    daemon.flush_audits()
-    for kind in ('AdmissionReport', 'ClusterAdmissionReport'):
-        for r in client.list_resource('kyverno.io/v1alpha2', kind, '',
-                                      None):
-            meta = r['metadata']
-            client.delete_resource('kyverno.io/v1alpha2', kind,
-                                   meta.get('namespace', ''), meta['name'])
+
+    def drop_admission_reports():
+        daemon.flush_audits()
+        for kind in ('AdmissionReport', 'ClusterAdmissionReport'):
+            for r in client.list_resource('kyverno.io/v1alpha2', kind, '',
+                                          None):
+                meta = r['metadata']
+                client.delete_resource('kyverno.io/v1alpha2', kind,
+                                       meta.get('namespace', ''),
+                                       meta['name'])
+
+    drop_admission_reports()
     # the counted pass: every review through the socket
-    rec = provenance.configure(
-        flight_n=len(reviews),
-        dump_dir=os.path.dirname(os.path.abspath(args.admission_child)))
+    rec = provenance.configure(flight_n=len(reviews), dump_dir=dump_dir)
     counter.reset()
     kernels.reset_launches()
     t0 = time.monotonic()
@@ -3040,7 +3096,7 @@ def admission_child(args) -> int:
                         f'{n_pod} on sync')
     # no Enforce policy matches a Namespace: the handler records those
     # decisions, which evaluate no policy, on the host loop's path
-    if ns_paths != {'host_fallback': args.namespaces}:
+    if ns_paths != {'host_fallback': namespaces}:
         problems.append(f'Namespace decisions by path {ns_paths}')
     # an allowed Pod review hands the Audit policy's results to an
     # audit thread, which writes one admission report
@@ -3062,27 +3118,35 @@ def admission_child(args) -> int:
     if policy_allowed != [True, False]:
         problems.append(f'/policyvalidate allowed {policy_allowed}, '
                         f'want [True, False]')
-    # the generate hand-off: one UpdateRequest per Namespace, which the
-    # background controller turns into a NetworkPolicy once the
-    # Namespace exists
-    urs = client.list_resource('kyverno.io/v1beta1', 'UpdateRequest',
-                               'kyverno', None)
-    for i in range(args.namespaces):
-        client.create_resource('v1', 'Namespace', '', {
-            'apiVersion': 'v1', 'kind': 'Namespace',
-            'metadata': {'name': f'team-{i}'}})
-    BackgroundController(setup).tick()
-    nps = sum(len(client.list_resource('networking.k8s.io/v1',
-                                       'NetworkPolicy', f'team-{i}', None))
-              for i in range(args.namespaces))
-    if len(urs) != args.namespaces or nps != args.namespaces:
-        problems.append(f'{len(urs)} UpdateRequests and {nps} '
-                        f'NetworkPolicies for {args.namespaces} Namespaces')
+    # the generate hand-off: one UpdateRequest per Namespace (a restarted
+    # daemon updates the ones its predecessor created)
+    urs = len(client.list_resource('kyverno.io/v1beta1', 'UpdateRequest',
+                                   'kyverno', None))
     reports = len(client.list_resource('kyverno.io/v1alpha2',
                                        'AdmissionReport', '', None))
     if reports != allowed_pods:
         problems.append(f'{reports} admission reports for {allowed_pods} '
                         f'allowed Pod reviews under the Audit policy')
+    nps = None
+    labels = None
+    if not restart:
+        # which the background controller turns into a NetworkPolicy
+        # once the Namespace exists
+        for i in range(namespaces):
+            client.create_resource('v1', 'Namespace', '', {
+                'apiVersion': 'v1', 'kind': 'Namespace',
+                'metadata': {'name': f'team-{i}'}})
+        BackgroundController(setup).tick()
+        nps = sum(len(client.list_resource(
+            'networking.k8s.io/v1', 'NetworkPolicy', f'team-{i}', None))
+            for i in range(namespaces))
+    if urs != namespaces or nps not in (None, namespaces):
+        problems.append(f'{urs} UpdateRequests and {nps} '
+                        f'NetworkPolicies for {namespaces} Namespaces')
+    if restart:
+        labels = restart_label_pass(daemon, oracle, port, ca, namespaces,
+                                    problems)
+        drop_admission_reports()
     bundles = []
     for kind, name in (('ValidatingWebhookConfiguration', VALIDATING_NAME),
                        ('MutatingWebhookConfiguration', MUTATING_NAME)):
@@ -3118,14 +3182,14 @@ def admission_child(args) -> int:
            'requests_per_s': len(reviews) / serve_s,
            'validate_paths': paths, 'launches': launches,
            'mutate': counter.stats(), 'kernel_checks': checks,
-           'update_requests': len(urs), 'network_policies': nps,
+           'update_requests': urs, 'network_policies': nps,
            'admission_reports': reports, 'allowed_pod_reviews': allowed_pods,
            'ca_bundles': len(bundles),
            'responses_digest': digest, 'mismatches': len(mismatches),
            'problems': problems}
-    with open(args.admission_child, 'w') as f:
-        json.dump(out, f)
-    return 0
+    if restart:
+        out['labels'] = labels
+    return out
 
 
 def admission_daemon_phase(seed: int, tmp: str, device: str = 'cuda:0',
@@ -3190,6 +3254,483 @@ def admission_daemon_phase(seed: int, tmp: str, device: str = 'cuda:0',
     return {'cold': cold, 'warm': warm, 'problems': problems}
 
 
+
+# ---------------------------------------------------------------------------
+# phase 11: the daemons against an API server over HTTP, then restarted on
+# the state they left
+
+RESTART_PODS = 4096            # Pods on the API server, in their Namespaces
+RESTART_REVIEWS = 100          # /validate/fail and /mutate reviews each
+RESTART_NAMESPACES = 10        # Namespace creations, and compliant Pods
+RESTART_CHECK = 1000           # report rows held against the host engine
+RESTART_CHILD_TIMEOUT_S = 300  # each process, start to end
+
+#: the kinds the daemons read or write over HTTP beyond the 11 that
+#: ``FakeApiServer``'s registry knows, each with its plural and its
+#: scope as a Kubernetes API server serves it.  Without an entry the
+#: server answers 404, and the client's discovery fallback would call a
+#: cluster-scoped kind namespaced
+API_KINDS = (
+    ('v1', 'Event', 'events', True),
+    ('coordination.k8s.io/v1', 'Lease', 'leases', True),
+    ('admissionregistration.k8s.io/v1', 'ValidatingWebhookConfiguration',
+     'validatingwebhookconfigurations', False),
+    ('admissionregistration.k8s.io/v1', 'MutatingWebhookConfiguration',
+     'mutatingwebhookconfigurations', False),
+    ('apiextensions.k8s.io/v1', 'CustomResourceDefinition',
+     'customresourcedefinitions', False),
+    ('batch/v1', 'CronJob', 'cronjobs', True),
+    ('kyverno.io/v1', 'Policy', 'policies', True),
+    ('kyverno.io/v2beta1', 'ClusterPolicy', 'clusterpolicies', False),
+    ('kyverno.io/v2beta1', 'Policy', 'policies', True),
+    ('kyverno.io/v2alpha1', 'ClusterCleanupPolicy', 'clustercleanuppolicies',
+     False),
+    ('kyverno.io/v2alpha1', 'CleanupPolicy', 'cleanuppolicies', True),
+    ('kyverno.io/v2alpha1', 'PolicyException', 'policyexceptions', True),
+    ('kyverno.io/v2beta1', 'PolicyException', 'policyexceptions', True),
+    ('kyverno.io/v1alpha2', 'AdmissionReport', 'admissionreports', True),
+    ('kyverno.io/v1alpha2', 'ClusterAdmissionReport',
+     'clusteradmissionreports', False),
+    ('kyverno.io/v1alpha2', 'BackgroundScanReport', 'backgroundscanreports',
+     True),
+    ('kyverno.io/v1alpha2', 'ClusterBackgroundScanReport',
+     'clusterbackgroundscanreports', False),
+    ('wgpolicyk8s.io/v1alpha2', 'ClusterPolicyReport',
+     'clusterpolicyreports', False),
+)
+
+
+def register_kinds(server) -> None:
+    """Teach ``server`` (a ``FakeApiServer`` of either package) every
+    kind of ``API_KINDS``."""
+    for api_version, kind, plural, namespaced in API_KINDS:
+        server.registry.register(api_version, kind, plural, namespaced)
+
+
+class RequestCounter:
+    """Counts the requests ``server`` answers, by verb and kind
+    (``'list Pod'``, ``'update_status ClusterPolicy'``; a path the
+    server does not route counts under ``'<verb> ?'``): installed in
+    place of its request handler, before it starts."""
+
+    def __init__(self, server):
+        import re
+        import threading
+        self.counts = {}
+        self._lock = threading.Lock()
+        counter, base = self, server._server.RequestHandlerClass
+
+        class Counting(base):
+            def _count(self, method):
+                path, _, query = self.path.partition('?')
+                parsed = server._parse(path)
+                verb = {'POST': 'create', 'PUT': 'update', 'PATCH': 'patch',
+                        'DELETE': 'delete'}.get(method)
+                if verb is None:
+                    verb = 'watch' if 'watch=true' in query else \
+                        'get' if parsed is not None and parsed[3] else 'list'
+                if method == 'PUT' and path.endswith('/status'):
+                    verb = 'update_status'
+                kind = parsed[1] if parsed is not None else '?'
+                if method == 'GET' and re.fullmatch(
+                        r'/api/v1|/apis/[^/]+/[^/]+', path):
+                    verb, kind = 'discovery', path
+                key = f'{verb} {kind}'
+                with counter._lock:
+                    counter.counts[key] = counter.counts.get(key, 0) + 1
+
+            def do_GET(self):  # noqa: N802
+                self._count('GET')
+                super().do_GET()
+
+            def do_POST(self):  # noqa: N802
+                self._count('POST')
+                super().do_POST()
+
+            def do_PUT(self):  # noqa: N802
+                self._count('PUT')
+                super().do_PUT()
+
+            def do_PATCH(self):  # noqa: N802
+                self._count('PATCH')
+                super().do_PATCH()
+
+            def do_DELETE(self):  # noqa: N802
+                self._count('DELETE')
+                super().do_DELETE()
+
+        server._server.RequestHandlerClass = Counting
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return dict(self.counts)
+
+    def since(self, before: dict) -> dict:
+        return {k: v - before.get(k, 0)
+                for k, v in sorted(self.snapshot().items())
+                if v - before.get(k, 0)}
+
+
+def restart_cluster(seed: int, pods: int):
+    """Phase 10's cluster (``daemon_cluster``) plus the first ``pods``
+    Pods of phase 3's generator, each in its Namespace."""
+    from kyverno_tpu_torch import smokepack
+    store = daemon_cluster()
+    rng = random.Random(seed)
+    namespaces = set()
+    for i in range(pods):
+        pod = smokepack.make_config4_pod(rng, i)
+        ns = pod['metadata']['namespace']
+        if ns not in namespaces:
+            namespaces.add(ns)
+            store.create_resource('v1', 'Namespace', '', {
+                'apiVersion': 'v1', 'kind': 'Namespace',
+                'metadata': {'name': ns}})
+        store.create_resource('v1', 'Pod', ns, pod)
+    return store
+
+
+#: where the uids of phase 11's label-pass reviews start
+RESTART_LABEL_UID = 100_000
+#: the metadata an API server stamps on each write
+STAMPED = ('uid', 'resourceVersion', 'creationTimestamp', 'generation',
+           'managedFields', 'selfLink')
+
+
+def current_resource_versions(client) -> dict:
+    """Each ClusterPolicy's resourceVersion on the server, by name."""
+    return {p['metadata']['name']: p['metadata'].get('resourceVersion')
+            for p in client.list_resource('kyverno.io/v1', 'ClusterPolicy',
+                                          '', None)}
+
+
+def stale_policy_labels(reports, current: dict) -> list:
+    """``(report, label, value)`` for each policy label of ``reports``
+    whose value is not that policy's resourceVersion in ``current``."""
+    out = []
+    for r in reports:
+        meta = r.get('metadata') or {}
+        for k, v in (meta.get('labels') or {}).items():
+            if k.startswith('cpol.kyverno.io/') and \
+                    current.get(k.split('/', 1)[1]) != v:
+                out.append((meta.get('name'), k, v))
+    return out
+
+
+def _report_body(report: dict) -> dict:
+    """``report`` without the server's stamps, its policy labels and the
+    scan clock (its results' timestamps, its last-scan-time annotation):
+    what two processes must write alike."""
+    report = json.loads(json.dumps(report))
+    meta = report.get('metadata') or {}
+    for k in STAMPED:
+        meta.pop(k, None)
+    (meta.get('annotations') or {}).pop('audit.kyverno.io/last-scan-time',
+                                        None)
+    meta['labels'] = {k: v for k, v in (meta.get('labels') or {}).items()
+                      if not k.startswith(('cpol.kyverno.io/',
+                                           'pol.kyverno.io/'))}
+    for r in (report.get('spec') or {}).get('results') or \
+            report.get('results') or []:
+        r.pop('timestamp', None)
+    return report
+
+
+def restart_label_pass(daemon, oracle, port: int, ca: bytes, n: int,
+                       problems: list) -> dict:
+    """Phase 11's check of the policy labels: tick the daemon (its
+    reconciler writes each policy's status, which bumps the policies'
+    resourceVersions, unless the status is already current), serve
+    ``n`` more compliant Pods through the socket, and hold the policy
+    labels of the admission reports they write against the server's
+    current resourceVersions."""
+    client = daemon.setup.client
+    t0 = time.monotonic()
+    daemon.tick()
+    tick_s = time.monotonic() - t0
+    before = {r['metadata']['name'] for r in client.list_resource(
+        'kyverno.io/v1alpha2', 'AdmissionReport', '', None)}
+    rng = random.Random(n)
+    reviews = [('/validate/fail', _review(RESTART_LABEL_UID + i,
+                                          '/validate/fail', compliant_pod(i),
+                                          rng)) for i in range(n)]
+    bad = 0
+    for route, body in reviews:
+        code, resp = _https(port, ca, 'POST', route, body)
+        bad += code != 200 or resp != oracle.handle(route, body)
+    daemon.flush_audits()
+    new = [r for r in client.list_resource('kyverno.io/v1alpha2',
+                                           'AdmissionReport', '', None)
+           if r['metadata']['name'] not in before]
+    stale = stale_policy_labels(new, current_resource_versions(client))
+    if bad:
+        problems.append(f'label pass: {bad} of {n} responses differ from '
+                        f'the host loop')
+    if not new:
+        problems.append('label pass: no admission report was written')
+    if stale:
+        problems.append(f'label pass: {len(stale)} policy labels of '
+                        f'admission reports are not the policies\' current '
+                        f'resourceVersions: {stale[:4]}')
+    return {'tick_s': tick_s, 'reviews': n, 'reports': len(new),
+            'labels': sum(1 for r in new for k in r['metadata']['labels']
+                          if k.startswith('cpol.kyverno.io/')),
+            'stale': len(stale), 'mismatches': bad}
+
+
+def restart_reports(url: str, device, vc_dir: str, first: bool) -> dict:
+    """Phase 11's reports daemon: ``ReportsController`` over an
+    ``HTTPClient`` to ``url``, one ``tick()``.  One report per Pod; the
+    rows of ``RESTART_CHECK`` Pods, spread evenly, held against the host
+    engine; the policy labels of every report it wrote and of the
+    aggregated PolicyReports held against the server's current
+    resourceVersions.  The first process (``first``) scans every row
+    with one K1v and one K1h launch; the restarted one must replay every
+    row from the verdict cache and launch nothing."""
+    from kyverno_tpu_torch.cmd.internal import Setup
+    from kyverno_tpu_torch.cmd.reports_controller import ReportsController
+    from kyverno_tpu_torch.dclient.http_client import (ClusterConfig,
+                                                       HTTPClient)
+    from kyverno_tpu_torch.engine.engine import Engine
+    from kyverno_tpu_torch.smokepack import host_report_results
+    import hashlib
+    problems = []
+    client = HTTPClient(ClusterConfig(server=url))
+    setup = Setup('kyverno-reports-controller', [], client=client)
+    daemon = ReportsController(setup, device=device)
+    written = []
+    parts = _timed_parts(daemon, written)
+    tick = reports_tick(daemon, parts, vc_dir)
+    sc = daemon.scan_controller
+    st = tick['rescan']
+    docs = client.list_resource('v1', 'Pod', '', None)
+    by_name = {r['metadata']['name']: r for r in written}
+    reports = [by_name.get(d['metadata']['uid']) for d in docs]
+    missing = sum(r is None for r in reports)
+    if missing or not docs:
+        problems.append(f'reports: {missing} of {len(docs)} Pods without a '
+                        f'report')
+    rows = [([], {}) if r is None else
+            (r['spec']['results'], r['spec']['summary']) for r in reports]
+    digests = row_digests(rows)
+    n = len(docs)
+    idx = sorted({i * n // RESTART_CHECK
+                  for i in range(min(n, RESTART_CHECK))})
+    engine = Engine()
+    t0 = time.perf_counter()
+    bad = [i for i in idx if row_digests([rows[i]]) != row_digests(
+        [host_report_results(sc.policies, docs[i], NOW, engine)])]
+    tick['vs_host'] = {'rows': len(idx), 'mismatches': len(bad),
+                       'check_s': time.perf_counter() - t0}
+    if bad:
+        problems.append(f'reports: {len(bad)} of {len(idx)} rows differ '
+                        f'from the host engine: {bad[:10]}')
+    aggregated = []
+    for kind in ('PolicyReport', 'ClusterPolicyReport'):
+        aggregated += client.list_resource('wgpolicyk8s.io/v1alpha2', kind,
+                                           '', None)
+    current = current_resource_versions(client)
+    stale = stale_policy_labels(written + aggregated, current)
+    if stale:
+        problems.append(f'reports: {len(stale)} policy labels are not the '
+                        f'policies\' current resourceVersions: {stale[:4]}')
+    body = hashlib.sha256(json.dumps(
+        [_report_body(r) for r in sorted(
+            written, key=lambda r: r['metadata']['name'])] +
+        [_report_body(r) for r in sorted(
+            aggregated, key=lambda r: (r['metadata'].get('namespace', ''),
+                                       r['metadata']['name']))],
+        sort_keys=True).encode()).hexdigest()
+    launched = {k: v for k, v in tick['launches'].items() if v}
+    if first:
+        if st['rows_scanned'] != st['rows_pending'] or st['rows_replayed']:
+            problems.append(f'reports: rescan stats {st}, every row '
+                            f'scanned expected')
+        on_card = device.type == 'cuda'
+        chunks = -(-st['rows_scanned'] // sc.scanner.CHUNK)
+        want = {k: chunks for k in SCAN_KERNELS} if on_card else {}
+        if {k: launched.get(k, 0) for k in want} != want:
+            problems.append(f'reports: launches {launched} for {chunks} '
+                            f'chunks')
+    else:
+        if st['rows_replayed'] != st['rows_pending'] or st['rows_scanned']:
+            problems.append(f'reports: rescan stats {st}, every row '
+                            f'replayed expected')
+        if launched:
+            problems.append(f'reports: a replay tick launched {launched}')
+    sc.scanner._encoder_pool.close()
+    setup.shutdown()
+    client.close()
+    tick.update({'pods': n, 'reports': len(written) - missing,
+                 'aggregated': len(aggregated),
+                 'policy_labels': sum(
+                     1 for r in written + aggregated
+                     for k in r['metadata'].get('labels') or {}
+                     if k.startswith('cpol.kyverno.io/')),
+                 'stale_labels': len(stale),
+                 'generation': sc.verdict_cache.fingerprint,
+                 'rows_digest': digest_of(digests), 'body_digest': body,
+                 'resource_versions': current})
+    return {'tick': tick, 'problems': problems}
+
+
+def restart_child(args) -> int:
+    """One process of phase 11 (``--restart-child FIRST|SECOND OUT``):
+    the reports daemon's tick, then the admission daemon, each over its
+    own ``HTTPClient`` to ``--api-server``; writes the record to OUT."""
+    import torch
+    from kyverno_tpu_torch.cmd.internal import Setup
+    from kyverno_tpu_torch.dclient.http_client import (ClusterConfig,
+                                                       HTTPClient)
+    name, out_path = args.restart_child
+    device = torch.device(args.device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        _die('torch.cuda.is_available() is False')
+    steps = {'imports': time.monotonic() - STARTED}
+    reports = restart_reports(args.api_server, device,
+                              os.environ['KTPU_VERDICT_CACHE_DIR'],
+                              first=name == 'FIRST')
+    client = HTTPClient(ClusterConfig(server=args.api_server))
+    setup = Setup('kyverno-admission-controller', ['--enable-tracing'],
+                  client=client)
+    steps['cluster'] = time.monotonic() - STARTED
+    adm = admission_daemon_run(
+        setup, device, daemon_reviews(args.reviews, args.namespaces,
+                                      args.seed),
+        args.namespaces, os.path.dirname(os.path.abspath(out_path)), steps,
+        restart=True)
+    client.close()
+    adm['ready_after_reports_s'] = adm['ready_s'] - steps['cluster']
+    with open(out_path, 'w') as f:
+        json.dump({'name': name, 'reports': reports['tick'],
+                   'admission': adm,
+                   'problems': reports['problems'] + adm['problems']}, f)
+    return 0
+
+
+def restart_phase(seed: int, tmp: str, device: str = 'cuda:0',
+                  pods: int = RESTART_PODS, reviews: int = RESTART_REVIEWS,
+                  namespaces: int = RESTART_NAMESPACES) -> dict:
+    """Phase 11: one ``FakeApiServer`` on 127.0.0.1 holding phase 10's
+    policies and ``pods`` Pods, every kind of ``API_KINDS`` registered,
+    and two processes of this script in turn against it over HTTP
+    (``restart_child``), sharing one fresh AOT store, kernel library
+    directory and verdict cache.  Between them every ClusterPolicy must
+    carry the status the first one's reconciler wrote.  The second (the
+    restart) must build no kernel, lower no K1v program and load one,
+    replay every report row under the first one's cache generation with
+    no launch, and write the first one's reports but for the policy
+    labels, which must be the server's current resourceVersions."""
+    from kyverno_tpu_torch.dclient.fakeserver import FakeApiServer
+    t0 = time.monotonic()
+    server = FakeApiServer(restart_cluster(seed, pods))
+    register_kinds(server)
+    requests = RequestCounter(server)
+    setup_s = time.monotonic() - t0
+    env = dict(os.environ, KTPU_AOT='1', KTPU_WARM='1', KTPU_PARTITIONS='0',
+               KTPU_AOT_CACHE_DIR=os.path.join(tmp, 'aot'),
+               KTPU_COMPILE_CACHE=os.path.join(tmp, 'lib'),
+               KTPU_VERDICT_CACHE_DIR=os.path.join(tmp, 'verdicts'))
+    runs, problems = {}, []
+    with server:
+        for name in ('FIRST', 'SECOND'):
+            if name == 'SECOND':
+                bare = [p['metadata']['name'] for p in
+                        server.store.list_resource('kyverno.io/v1',
+                                                   'ClusterPolicy', '', None)
+                        if not p.get('status')]
+                if bare:
+                    raise AssertionError(f'no status on {bare} after the '
+                                         f'first process: the restart '
+                                         f'would prove nothing')
+            out_path = os.path.join(tmp, f'{name}.json')
+            logs = (os.path.join(tmp, f'{name}.out'),
+                    os.path.join(tmp, f'{name}.err'))
+            cmd = [sys.executable, os.path.abspath(__file__), '--seed',
+                   str(seed), '--device', device, '--reviews', str(reviews),
+                   '--namespaces', str(namespaces), '--api-server',
+                   server.url, '--restart-child', name, out_path]
+            before = requests.snapshot()
+            t1 = time.monotonic()
+            with open(logs[0], 'w') as out, open(logs[1], 'w') as err:
+                child = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=out,
+                                         stderr=err)
+            try:
+                child.wait(timeout=RESTART_CHILD_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                child.kill()
+                child.wait()
+            if child.returncode != 0 or not os.path.exists(out_path):
+                with open(logs[1]) as err:
+                    tail = err.read()[-3000:]
+                raise AssertionError(
+                    f'the {name} process exited {child.returncode} (killed '
+                    f'past {RESTART_CHILD_TIMEOUT_S} s if negative):\n'
+                    f'{tail}')
+            with open(out_path) as f:
+                runs[name] = dict(json.load(f),
+                                  wall_s=time.monotonic() - t1,
+                                  http_requests=requests.since(before))
+            problems += [f'{name}: {p}' for p in runs[name]['problems']]
+    first, second = runs['FIRST'], runs['SECOND']
+    cold = first['admission']
+    if cold['lowered_by_source'].get('fresh_compile', 0) < 1 or \
+            cold['compile_cache']['aot_store'] < 1:
+        problems.append(f'the first daemon lowered and stored '
+                        f'{cold["lowered_by_source"]}, '
+                        f'{cold["compile_cache"]}')
+    adm = second['admission']
+    on_card = device.startswith('cuda')
+    built = adm['warmer']['attributes'].get('kernels_built', 0)
+    if on_card and built:
+        problems.append(f'the restarted daemon built {built} kernels')
+    if adm['lowered_by_source'].get('fresh_compile', 0) or \
+            adm['lowered_by_source'].get('aot_load', 0) < 1:
+        problems.append(f'the restarted daemon lowered and loaded '
+                        f'{adm["lowered_by_source"]} (0 lowered, 1 or more '
+                        f'loaded expected)')
+    if first['admission']['responses_digest'] != adm['responses_digest']:
+        problems.append('the two admission daemons answered differently')
+    r1, r2 = first['reports'], second['reports']
+    for key in ('generation', 'rows_digest', 'body_digest'):
+        if r1[key] != r2[key]:
+            problems.append(f'the restarted reports daemon\'s {key} '
+                            f'differs from the first one\'s')
+    if r1['resource_versions'] == r2['resource_versions']:
+        problems.append('no policy resourceVersion changed between the '
+                        'two reports ticks')
+    return {'pods': pods, 'setup_s': setup_s, 'first': first,
+            'second': second, 'problems': problems}
+
+
+
+def restart_line(rs: dict) -> dict:
+    """The ``restart`` line: per process, the readiness, the program
+    cache, the serving rate, the reports tick and the HTTP requests the
+    server answered, by verb and kind."""
+    out = {'pods': rs['pods']}
+    for name in ('first', 'second'):
+        run = rs[name]
+        adm, rep = run['admission'], run['reports']
+        out[name] = {
+            'wall_s': run['wall_s'], 'ready_s': adm['ready_s'],
+            'ready_after_reports_s': adm['ready_after_reports_s'],
+            'kernels_built': adm['warmer']['attributes'].get(
+                'kernels_built', 0),
+            'lowered_by_source': adm['lowered_by_source'],
+            'compile_cache': adm['compile_cache'],
+            'serve_s': adm['serve_s'],
+            'requests_per_s': adm['requests_per_s'],
+            'validate_paths': adm['validate_paths'],
+            'mismatches': adm['mismatches'], 'labels': adm['labels'],
+            'kernel_checks': adm['kernel_checks'],
+            'launches': adm['launches'],
+            'reports_tick': {k: rep[k] for k in (
+                'wall_s', 'pods_per_s', 'parts_s', 'rescan', 'launches',
+                'vs_host', 'reports', 'aggregated', 'policy_labels',
+                'stale_labels', 'generation', 'encoder_pool')},
+            'http_requests': run['http_requests']}
+    return out
 # ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -3214,7 +3755,17 @@ def main(argv=None) -> int:
                     help='(--admission-child) /validate/fail and /mutate '
                          'reviews each')
     ap.add_argument('--namespaces', type=int, default=DAEMON_NAMESPACES,
-                    help='(--admission-child) Namespace creations')
+                    help='(--admission-child, --restart-child) Namespace '
+                         'creations')
+    ap.add_argument('--reports-pods', type=int, default=REPORTS_PODS,
+                    help='Pods of the reports daemon\'s cluster (phase 9; '
+                         '100,000 is the full configuration)')
+    ap.add_argument('--restart-child', nargs=2, metavar=('FIRST|SECOND',
+                                                         'OUT'),
+                    help='run one process of phase 11 against '
+                         '--api-server and write its result to OUT')
+    ap.add_argument('--api-server', metavar='URL',
+                    help='(--restart-child) the API server')
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, 'kyverno_tpu_torch')):
         _die('kyverno_tpu_torch/ is not beside this script; run it from a '
@@ -3228,6 +3779,10 @@ def main(argv=None) -> int:
         return partitioned_child(args)
     if args.admission_child:
         return admission_child(args)
+    if args.restart_child:
+        if not args.api_server:
+            _die('--restart-child needs --api-server')
+        return restart_child(args)
     import torch
     if not torch.cuda.is_available():
         _die('torch.cuda.is_available() is False: this script measures '
@@ -3270,8 +3825,8 @@ def main(argv=None) -> int:
               f'scanning {MIN_PODS}', flush=True)
         n = MIN_PODS
     elif n < 100_000:
-        print(f'cut: the slice, the restricted scan and the reports daemon '
-              f'run over {n} Pods instead of 100000', flush=True)
+        print(f'cut: the slice and the restricted scan run over {n} Pods '
+              f'instead of 100000', flush=True)
     rng = random.Random(args.seed)
     pods = [smokepack.make_config4_pod(rng, i) for i in range(n)]
     scanner = BatchScanner(policies)       # on the card by default
@@ -3368,14 +3923,24 @@ def main(argv=None) -> int:
     phase_done('restricted')
 
     # 9. the reports controller -----------------------------------------
-    nb = min(n, MIN_PODS)
-    if nb < n:
+    nr = max(args.reports_pods, 1)
+    if nr < 100_000:
+        print(f'cut: the reports daemon runs over {nr} Pods instead of '
+              f'100000', flush=True)
+    if nr <= n:
+        rpods_9 = pods[:nr]
+    else:
+        prng = random.Random(args.seed)
+        rpods_9 = [smokepack.make_config4_pod(prng, i) for i in range(nr)]
+    nb = min(nr, MIN_PODS)
+    if nb < nr:
         print(f'cut: the partitioned ticks run over {nb} Pods instead of '
-              f'{n}', flush=True)
+              f'{nr}', flush=True)
     import tempfile
     with tempfile.TemporaryDirectory(prefix='ktpu-reports-') as tmp:
-        rp = reports_phase(policies, pods, slice_digests, nb, args.seed,
-                           tmp)
+        rp = reports_phase(policies, rpods_9, slice_digests[:nr], nb,
+                           args.seed, tmp)
+    del rpods_9
     print('reports ' + json.dumps(rp['whole']), flush=True)
     print('partitioned ' + json.dumps(rp['partitioned']), flush=True)
     report['reports'] = rp
@@ -3397,6 +3962,15 @@ def main(argv=None) -> int:
         raise AssertionError('admission daemon: ' +
                              '; '.join(ad['problems']))
     phase_done('admission_daemon')
+
+    # 11. the daemons over HTTP, restarted on the state they left -------
+    with tempfile.TemporaryDirectory(prefix='ktpu-restart-') as tmp:
+        rs11 = restart_phase(args.seed, tmp)
+    print('restart ' + json.dumps(restart_line(rs11)), flush=True)
+    report['restart'] = rs11
+    if rs11['problems']:
+        raise AssertionError('restart: ' + '; '.join(rs11['problems']))
+    phase_done('restart')
     for r in records:
         # K1v, K1h, K1c and K3 are held at the admission webhook's shapes:
         # its launches, and the times and bound of the kernel at the
@@ -3427,6 +4001,11 @@ def main(argv=None) -> int:
                 for t in ('cold', 'edit')),
             # the warm daemon's counted pass, its programs from the store
             'admission_daemon': ad['warm']['launches'].get(r['name'], 0),
+            # the restarted process of phase 11: its reports tick (a
+            # replay) and its admission daemon's counted pass
+            'restart': rs11['second']['reports']['launches'].get(
+                r['name'], 0) + rs11['second']['admission'][
+                    'launches'].get(r['name'], 0),
             # the eager walks that hold K1v against its plain version
             # (K1c runs only there: on the main path its DP is in K1v)
             'k1v_checks': chunk_stats['k1v_check']['capture_launches'].get(

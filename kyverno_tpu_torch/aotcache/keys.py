@@ -68,13 +68,34 @@ def source_digest() -> str:
     return _SOURCE_DIGEST
 
 
+def policy_semantics(doc: dict) -> tuple:
+    """What the engine reads of a stored policy document: its
+    ``apiVersion``, ``kind``, ``spec`` and of its metadata the
+    namespace, name, labels and annotations (``api/policy.py`` reads the
+    name, namespace and annotations).  Not its ``status``, which the
+    webhook reconciler writes, nor the stamps the API server sets on
+    each write (``resourceVersion``, ``generation``, ``uid``,
+    ``creationTimestamp``, ``managedFields``, ``selfLink``)."""
+    meta = doc.get('metadata') or {}
+    return (doc.get('apiVersion'), doc.get('kind'), meta.get('namespace'),
+            meta.get('name'), meta.get('labels'), meta.get('annotations'),
+            doc.get('spec'))
+
+
 def policy_set_fingerprint(policies) -> str:
-    """Stable digest of a policy set's raw documents (the evaluator HLO
-    is a deterministic function of them — verified cross-process)."""
+    """Stable digest of a policy set's ``policy_semantics`` (the K1v
+    programs and the verdict rows are a deterministic function of them
+    — verified cross-process).
+
+    Unlike the JAX package's key, which digests the whole raw documents,
+    a status write or a server stamp leaves this fingerprint as it was:
+    a daemon restarted after its reconciler wrote status loads its
+    programs and replays its verdict rows instead of lowering and
+    rescanning."""
     import json
-    payload = json.dumps([getattr(p, 'raw', p) for p in policies],
-                         sort_keys=True, separators=(',', ':'),
-                         default=str)
+    payload = json.dumps(
+        [policy_semantics(getattr(p, 'raw', p)) for p in policies],
+        sort_keys=True, separators=(',', ':'), default=str)
     return hashlib.sha256(payload.encode()).hexdigest()[:20]
 
 

@@ -13,6 +13,7 @@ import tempfile
 import threading
 from typing import List, Optional
 
+from ..aotcache.keys import policy_semantics
 from ..api.policy import Policy
 from ..controllers.leaderelection import LeaderElector, mesh_is_leader
 from ..controllers.webhook import WebhookConfigReconciler
@@ -21,15 +22,6 @@ from ..tls.certs import CertRenewer
 from ..webhooks.handlers import ResourceHandlers
 from ..webhooks.server import WebhookServer
 from .internal import Setup, base_parser
-
-
-def _policy_semantics(doc: dict) -> tuple:
-    """What the engine reads of a stored policy document: not its
-    status, nor the server's stamps on each write."""
-    meta = doc.get('metadata') or {}
-    return (doc.get('apiVersion'), doc.get('kind'), meta.get('namespace'),
-            meta.get('name'), meta.get('labels'), meta.get('annotations'),
-            doc.get('spec'))
 
 
 class AdmissionController:
@@ -211,17 +203,22 @@ class AdmissionController:
                         api_version, kind, '', None)
                 except Exception:  # noqa: BLE001
                     continue
-        seen = [_policy_semantics(d) for d in docs]
+        seen = [policy_semantics(d) for d in docs]
         with self._sync_lock:
             # unchanged policies keep their Policy objects: the handlers
             # key each compiled scanner by its policies' identities, so
             # re-warming an unchanged set (or one whose status the
             # reconciler just wrote back) would rebuild every scanner
-            # and serve the host loop while they build
+            # and serve the host loop while they build.  Each kept
+            # object takes the server's current document, so the
+            # reports stamp its current resourceVersion
             if seen != self._synced_semantics:
                 self._synced = [Policy(d) for d in docs]
                 self._synced_semantics = seen
                 self.cache.warm_up(self._synced)
+            else:
+                for policy, doc in zip(self._synced, docs):
+                    policy.raw = doc
             return list(self._synced)
 
     def tick(self) -> None:
@@ -231,8 +228,8 @@ class AdmissionController:
             self.elector is None or self.elector.is_leader())
         if is_leader:
             # the reconciler records each policy's status on the objects
-            # it is given: copies, so that the serving set's documents,
-            # which key its compiled programs, stay as they were synced
+            # it is given: copies, so that the serving set's documents
+            # change only at a sync
             self.reconciler.reconcile(
                 [Policy(copy.deepcopy(p.raw)) for p in policies])
             self.reconciler.heartbeat()

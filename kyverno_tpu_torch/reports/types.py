@@ -19,9 +19,11 @@ LABEL_APP_MANAGED_BY = 'app.kubernetes.io/managed-by'
 VALUE_KYVERNO_APP = 'kyverno'
 
 
-# (policy id) → (policy, label, resourceVersion): label derivation runs
-# per (report, policy) pair during batch scans — millions of calls for
-# a value that is constant per policy object
+# (policy id) → (policy, label): label derivation runs per (report,
+# policy) pair during batch scans — millions of calls for a value that
+# is constant per policy object.  The resourceVersion is read at each
+# call: a daemon keeps a policy's object across a status write and
+# gives it the server's new document
 _POLICY_LABEL_CACHE: dict = {}
 
 
@@ -30,19 +32,22 @@ def policy_label(policy: Policy) -> str:
     return _policy_label_rv(policy)[0]
 
 
+def _resource_version(policy: Policy) -> str:
+    return policy.metadata.get('resourceVersion', '') or ''
+
+
 def _policy_label_rv(policy: Policy):
     pid = id(policy)
     hit = _POLICY_LABEL_CACHE.get(pid)
     if hit is not None and hit[0] is policy:
-        return hit[1], hit[2]
+        return hit[1], _resource_version(policy)
     domain = LABEL_DOMAIN_POLICY if policy.is_namespaced \
         else LABEL_DOMAIN_CLUSTER_POLICY
     label = f'{domain}/{policy.name}'
-    rv = policy.metadata.get('resourceVersion', '') or ''
     if len(_POLICY_LABEL_CACHE) > 4096:
         _POLICY_LABEL_CACHE.clear()
-    _POLICY_LABEL_CACHE[pid] = (policy, label, rv)
-    return label, rv
+    _POLICY_LABEL_CACHE[pid] = (policy, label)
+    return label, _resource_version(policy)
 
 
 def is_policy_label(label: str) -> bool:
@@ -176,23 +181,26 @@ def new_background_scan_report(resource: dict) -> dict:
 # path stamps the same policy set onto every row's report, so the
 # managed-by + per-policy labels prebuild once and each report pays one
 # C-level dict copy (id-keyed with identity re-verification, like
-# _POLICY_LABEL_CACHE)
+# _POLICY_LABEL_CACHE, and rebuilt when a policy's resourceVersion
+# changed)
 _FUSED_LABEL_CACHE: dict = {}
 
 
 def _fused_labels(policies) -> dict:
     lkey = tuple(id(p) for p in policies)
+    rvs = tuple(_resource_version(p) for p in policies)
     hit = _FUSED_LABEL_CACHE.get(lkey)
     if hit is not None and len(hit[0]) == len(policies) and \
-            all(a is b for a, b in zip(hit[0], policies)):
-        return hit[1]
+            all(a is b for a, b in zip(hit[0], policies)) and \
+            hit[1] == rvs:
+        return hit[2]
     labels = {LABEL_APP_MANAGED_BY: VALUE_KYVERNO_APP}
     for policy in policies:
         label, rv = _policy_label_rv(policy)
         labels[label] = rv
     if len(_FUSED_LABEL_CACHE) > 4096:
         _FUSED_LABEL_CACHE.clear()
-    _FUSED_LABEL_CACHE[lkey] = (tuple(policies), labels)
+    _FUSED_LABEL_CACHE[lkey] = (tuple(policies), rvs, labels)
     return labels
 
 

@@ -27,7 +27,8 @@ PORTED = {'__init__.py', 'ops/eval.py', 'compiler/scan.py',
           'observability/executables.py', 'reports/controllers.py',
           'cmd/reports_controller.py', 'controllers/leaderelection.py',
           'aotcache/keys.py', 'compiler/aot.py',
-          'cmd/admission_controller.py'}
+          'cmd/admission_controller.py', 'reports/types.py',
+          'dclient/http_client.py'}
 #: verbatim copies whose absolute self-import was renamed, by line
 REWRITTEN = {'engine/jmespath/__init__.py': {5}}
 
@@ -255,6 +256,49 @@ def test_chip_smoke_admission_daemon_runs_with_jax_blocked(tmp_path):
     assert rec['lowered_by_source'] == {'fresh_compile': 1}
     assert (rec['update_requests'], rec['network_policies'],
             rec['admission_reports']) == (2, 2, 2)
+
+
+def test_chip_smoke_restart_children_run_with_jax_blocked(tmp_path):
+    """The two processes of ``chip_smoke.py``'s phase 11 in turn, run
+    here on the CPU at a tiny size with the import blocker, against one
+    ``FakeApiServer`` over HTTP: the reports daemon and the admission
+    daemon (TLS, its AOT store, the verdict cache) import nothing of JAX;
+    the restarted one loads its program, replays every report row and
+    stamps the server's current resourceVersions."""
+    import chip_smoke
+    from kyverno_tpu_torch.dclient.fakeserver import FakeApiServer
+    env = dict(os.environ)
+    env.pop('PYTHONPATH', None)
+    env.update({'KTPU_AOT_CACHE_DIR': str(tmp_path / 'aot'),
+                'KTPU_COMPILE_CACHE': str(tmp_path / 'lib'),
+                'KTPU_VERDICT_CACHE_DIR': str(tmp_path / 'vc'),
+                'KTPU_PARTITIONS': '0', 'KTPU_ENCODE_PROCS': '0'})
+    server = FakeApiServer(chip_smoke.restart_cluster(0, 24))
+    chip_smoke.register_kinds(server)
+    runs = {}
+    with server:
+        for name in ('FIRST', 'SECOND'):
+            out = tmp_path / f'{name}.json'
+            proc = subprocess.run(
+                [sys.executable, '-c', _CHILD_MESH, ROOT, '--device', 'cpu',
+                 '--reviews', '4', '--namespaces', '2', '--api-server',
+                 server.url, '--restart-child', name, str(out)],
+                capture_output=True, text=True, timeout=240, cwd=ROOT,
+                env=env)
+            assert proc.returncode == 0, proc.stderr[-3000:]
+            assert 'ISOLATED-OK' in proc.stdout
+            runs[name] = json.loads(out.read_text())
+            assert runs[name]['problems'] == []
+    first, second = runs['FIRST'], runs['SECOND']
+    assert first['admission']['lowered_by_source'] == {'fresh_compile': 1}
+    assert second['admission']['lowered_by_source'] == {'aot_load': 1}
+    assert second['admission']['labels']['stale'] == 0
+    assert second['admission']['labels']['reports'] == 2
+    st = second['reports']['rescan']
+    assert st['rows_replayed'] == st['rows_pending'] > 24
+    assert second['reports']['reports'] == 24
+    for key in ('generation', 'rows_digest', 'body_digest'):
+        assert second['reports'][key] == first['reports'][key], key
 
 
 def test_engine_rev_digests_the_ports_own_sources():

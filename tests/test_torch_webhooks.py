@@ -276,17 +276,35 @@ def test_policy_change_hot_swaps_without_breaker_failures(tmp_path):
 
 def test_partition_plan_equals_jax():
     """The port's partition plan (grouping and fingerprints, which the
-    hot-swap's churn differ compares) is the JAX package's."""
+    hot-swap's churn differ compares) is the JAX package's, but that each
+    partition's fingerprint digests what the engine reads of its members
+    (``aotcache/keys.py policy_semantics``), where the JAX key digests
+    their raw documents."""
     from kyverno_tpu.partition import plan as jax_plan
+    from kyverno_tpu_torch.aotcache.keys import policy_semantics
     from kyverno_tpu_torch.api.policy import Policy
     from kyverno_tpu_torch.partition import plan
+    from kyverno_tpu_torch.partition.keys import partition_fingerprint
     docs = policy_docs()
+
+    def shape(partitions):
+        return [{k: v for k, v in p.to_dict().items() if k != 'fingerprint'}
+                for p in partitions]
     for n_parts in (1, 3, 8):
         got = plan.build_plan([Policy(d) for d in docs], n_parts)
         want = jax_plan.build_plan([JaxPolicy(d) for d in docs], n_parts)
         assert got.assignment == want.assignment
-        assert [p.to_dict() for p in got.partitions] == \
-            [p.to_dict() for p in want.partitions]
+        assert shape(got.partitions) == shape(want.partitions)
+        for part in got.partitions:
+            members = [docs[i] for i in part.policy_indices]
+            assert part.fingerprint == partition_fingerprint(
+                [Policy(d) for d in members])
+            # a status write leaves it as it was
+            stamped = [dict(d, status={'ready': True}) for d in members]
+            assert [policy_semantics(d) for d in stamped] == \
+                [policy_semantics(d) for d in members]
+            assert part.fingerprint == partition_fingerprint(
+                [Policy(d) for d in stamped])
     edited = json.loads(json.dumps(docs))
     edited[0]['spec']['rules'][0]['name'] += '-edited'
     diff = plan.diff_plans(plan.build_plan([Policy(d) for d in docs], 3),
