@@ -191,6 +191,28 @@ CUDA card and checks it, in phases that each print one line:
    first one's reports but for the policy labels.  The line gives per
    process the readiness, the program cache, the serving rate, the
    reports tick and the requests the server answered, by verb and kind.
+12. ``loadgen``: the load generator's drills (``conformance/loadgen.py``
+   ``SyntheticCluster``) against batch-mode handlers on the card over
+   the smoke pack in Enforce and the admission-lanes pack, each as its
+   ``bench.py`` counterpart checks it.  (a) heterogeneous traffic
+   (seed 1234: zipfian users and namespaces, CREATE and UPDATE,
+   exception tenants on the host loop) at 1, 8 and 32 client threads,
+   25 reviews each, every response byte against the host loop: mean
+   occupancy at 32 threads over 2.0, no ``host_fallback``, at least
+   99 % of the other tenants' decisions on ``batch``; one burst's K1v
+   (with admission entries, K1i) and K1h calls are first held against
+   their plain versions.  (b) chaos (seed 4321, every 8th review a
+   poison row): the fault-free oracle pass, then 6 threads x 8 reviews
+   with ``KTPU_FAULTS`` armed: every response 200 with the oracle's
+   verdict and ``poison_row`` shedding exactly the poison rows; then
+   the breaker's open → half-open → closed round trip.  (c) policy
+   churn in a child process (``--loadgen-child OUT``) with
+   ``KTPU_PARTITIONS=4``: one scheduled edit of a policy that denies a
+   probe Pod, enforced at once and after the hot swap, one swap, one
+   partition recompiled, no fallback, 4 threads x 24 reviews on the
+   swapped scanner against the host loop.  Then a small kuttl suite
+   (``KUTTL_SUITE``) through ``run_suite(..., device='cuda:0')``.  K1v
+   and K1h must launch in (a) and (c), K1v in the suite.
 
 Every phase fails if a program of its packs is routed to the eager
 walk.  Then the seconds of each phase, one JSON line of
@@ -211,7 +233,8 @@ Run from the repository root:
 ``--partitioned-child OUT`` the one phase 9 starts 9b in,
 ``--admission-child OUT`` the one phase 10 starts its daemons in,
 ``--restart-child FIRST|SECOND OUT --api-server URL`` the one phase 11
-starts its processes in; with ``--device cpu`` the last two rehearse on
+starts its processes in, ``--loadgen-child OUT`` the one phase 12 starts
+its churn drill in; with ``--device cpu`` the last three rehearse on
 the host without the kernel checks.)
 
 Without a CUDA card, or outside the repository, it exits non-zero and
@@ -2879,13 +2902,6 @@ def _https(port: int, ca_pem: bytes, method: str, path: str,
         conn.close()
 
 
-def _free_port() -> int:
-    import socket
-    with socket.socket() as s:
-        s.bind(('127.0.0.1', 0))
-        return s.getsockname()[1]
-
-
 def daemon_kernel_checks(server, oracle, reviews, device) -> dict:
     """One review of each Pod route served in-process with the kernel
     wrappers spied on, and every captured call held against the
@@ -2993,18 +3009,29 @@ def admission_daemon_run(setup, device, reviews, namespaces: int,
     on_card = device.type == 'cuda'
     client = setup.client
     problems = []
-    port = _free_port()
-    daemon = AdmissionController(setup, port=port, tls=True,
-                                 device=device)
+    # port 0: the listener takes the port the kernel gives it when it
+    # binds, so no outgoing connection to the API server can take a
+    # port chosen beforehand and leave the daemon without one
+    daemon = AdmissionController(setup, port=0, tls=True, device=device)
     steps['constructed'] = time.monotonic() - STARTED
     # run()'s parts, from a thread of this process's own
-    runner = threading.Thread(
-        target=lambda: (daemon.server.start(), daemon.tick()),
-        name='daemon-run')
+    failed = []
+
+    def run():
+        try:
+            daemon.server.start()
+            daemon.tick()
+        except BaseException as e:  # noqa: BLE001 - raised below
+            failed.append(e)
+    runner = threading.Thread(target=run, name='daemon-run')
     runner.start()
     runner.join(DAEMON_CHILD_TIMEOUT_S)
     if runner.is_alive():
         raise AssertionError('server.start() and tick() did not return')
+    if failed:
+        raise AssertionError('server.start() or tick() raised') \
+            from failed[0]
+    port = daemon.server.port
     ca = daemon.cert_renewer.ca_bundle()
     deadline = time.monotonic() + DAEMON_CHILD_TIMEOUT_S
     polls = 0
@@ -3733,6 +3760,800 @@ def restart_line(rs: dict) -> dict:
     return out
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 12: the load generator's drills, and the kuttl harness, on the card
+
+LOADGEN_THREADS = (1, 8, 32)   # (a)'s client threads, one block each
+LOADGEN_PER_THREAD = 25        # (a)'s reviews per thread
+HET_OCCUPANCY_FLOOR = 2.0      # (a)'s mean occupancy must exceed it at the
+                               # top thread count (bench.py's ratchet)
+CHAOS_THREADS = 6              # (b): threads x reviews of the poison wave
+CHAOS_PER_THREAD = 8
+CHURN_THREADS = 4              # (c): threads x reviews after the swap
+CHURN_PER_THREAD = 24
+CHURN_PARTITIONS = 4           # KTPU_PARTITIONS of (c)'s process
+BREAKER_BACKOFF_MS = '300'     # the breaker drill's backoff (bench.py's)
+LOADGEN_CHILD_TIMEOUT_S = 300  # (c)'s process, start to end
+LOADGEN_PROBES = 64            # Pods tried for (c)'s denied probe
+
+
+def loadgen_policies():
+    """Phase 12's policies: the smoke pack in Enforce and the
+    admission-lanes pack, whose subject, role and cluster-role matches
+    put each row's user and groups into K1v's admission entries (K1i)."""
+    import yaml
+    from kyverno_tpu_torch import smokepack
+    from kyverno_tpu_torch.api.policy import Policy
+    return smokepack.load_smoke_pack('Enforce') + [
+        Policy(d) for d in yaml.safe_load_all(smokepack.ADMISSION_LANES_PACK)
+        if d]
+
+
+def loadgen_server(device, policies=None):
+    """``(cache, handlers, server, oracle)``: batch-mode handlers on
+    ``device`` over ``policies`` (default ``loadgen_policies()``), ready
+    to serve, with the breaker drill's backoff, and a host-loop oracle
+    on the same cache."""
+    from kyverno_tpu_torch.policycache.cache import Cache
+    from kyverno_tpu_torch.webhooks.handlers import ResourceHandlers
+    from kyverno_tpu_torch.webhooks.server import WebhookServer
+    cache = Cache()
+    cache.warm_up(policies if policies is not None else loadgen_policies())
+    saved = os.environ.get('KTPU_BREAKER_BACKOFF_MS')
+    os.environ['KTPU_BREAKER_BACKOFF_MS'] = BREAKER_BACKOFF_MS
+    try:
+        handlers = ResourceHandlers(cache, serving_mode='batch',
+                                    torch_device=device)
+    finally:
+        if saved is None:
+            os.environ.pop('KTPU_BREAKER_BACKOFF_MS', None)
+        else:
+            os.environ['KTPU_BREAKER_BACKOFF_MS'] = saved
+    oracle = WebhookServer(ResourceHandlers(cache, device=False))
+    if not handlers.wait_device_ready(_enforce(cache), timeout=READY_S):
+        raise AssertionError('phase 12: the validate scanner did not come '
+                             'up')
+    return cache, handlers, WebhookServer(handlers), oracle
+
+
+def _enforce(cache, ns: str = 'ns-0'):
+    from kyverno_tpu_torch.policycache import cache as pcache
+    return cache.get_policies(pcache.VALIDATE_ENFORCE, 'Pod', ns)
+
+
+class exception_tenants:
+    """Within the block, a request of one of ``cluster``'s exception
+    tenants carries ``cluster.exception_docs()`` through each handler's
+    PolicyContextBuilder (``bench.py``'s wrapper): placeholders that
+    match no policy, so its verdict is unchanged and it rides the host
+    loop."""
+
+    def __init__(self, cluster, *handlers):
+        self.cluster = cluster
+        self.builders = [h.pc_builder for h in handlers]
+        self.docs = cluster.exception_docs()
+
+    def __enter__(self):
+        self.real = [b.build for b in self.builders]
+
+        def wrap(build):
+            def call(request, policy=None):
+                pctx = build(request, policy)
+                user = (request.get('userInfo') or {}).get('username', '')
+                if self.cluster.is_exception_tenant(user):
+                    pctx.exceptions = list(self.docs)
+                return pctx
+            return call
+
+        for b, build in zip(self.builders, self.real):
+            b.build = wrap(build)
+        return self
+
+    def __exit__(self, *exc):
+        for b, build in zip(self.builders, self.real):
+            b.build = build
+        return False
+
+
+def _burst(threads: int, per_thread: int, send, strided: bool = False):
+    """``send(j)`` for ``j`` in ``range(threads * per_thread)`` from
+    ``threads`` threads released together (thread t sends its block of
+    ``per_thread``, or with ``strided`` every j = t mod threads); returns
+    the results by ``j`` and the wall seconds."""
+    import threading
+    out = [None] * (threads * per_thread)
+    errors = []
+    barrier = threading.Barrier(threads + 1)
+
+    def work(t):
+        barrier.wait()
+        try:
+            for k in range(per_thread):
+                j = t + k * threads if strided else t * per_thread + k
+                out[j] = send(j)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    workers = [threading.Thread(target=work, args=(t,))
+               for t in range(threads)]
+    for w in workers:
+        w.start()
+    barrier.wait()
+    t0 = time.perf_counter()
+    for w in workers:
+        w.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f'phase 12: the webhook raised: {errors[:3]}')
+    return out, wall
+
+
+def _held_to_plain(calls) -> dict:
+    """One batch's K1v and K1h calls (captured on the card) against
+    their plain versions on the same tensors."""
+    from kyverno_tpu_torch.ops import kernels
+    packed, program = calls['status_vm'][0]
+    vm = kernels.status_vm(packed, program)
+    k1h = calls['fdet_select'][0]
+    return {'rows': next(iter(packed.values())).shape[0],
+            'adm_entries': program.n_adm, 'adm_cols': vm[3].shape[1],
+            'k1_vm': _max_abs_err(vm, program.plain(packed)),
+            'k1h_fdet_select': _max_abs_err(
+                kernels.fdet_select(*k1h), kernels.fdet_select_plain(*k1h))}
+
+
+def hetero_drill(server, handlers, oracle, thread_counts=LOADGEN_THREADS,
+                 per_thread: int = LOADGEN_PER_THREAD,
+                 kernel_checks: bool = True, keep: bool = False) -> dict:
+    """(a) ``bench.py admission_heterogeneous`` on the port: the
+    synthetic cluster's reviews (seed 1234: zipfian users and
+    namespaces, CREATE and UPDATE, exception tenants on the host loop)
+    from each thread count in turn, every response byte held against
+    the host loop.  With ``kernel_checks`` (the card) one burst's K1v
+    and K1h calls are first held against their plain versions, and K1v
+    must carry admission entries (K1i).  With ``keep`` the record holds
+    each block's (review, response) pairs."""
+    from kyverno_tpu_torch.conformance.loadgen import SyntheticCluster
+    from kyverno_tpu_torch.observability import provenance
+    from kyverno_tpu_torch.ops import kernels
+    cluster = SyntheticCluster(seed=1234)
+    route = '/validate/fail'
+    top = max(thread_counts)
+    out = {'generator': {'seed': cluster.seed, 'users': len(cluster.users),
+                         'namespaces': len(cluster.namespaces),
+                         'exception_tenants': len(cluster.exception_users)},
+           'blocks': [], 'problems': []}
+    problems = out['problems']
+    base = 0
+    recorder = provenance.configure(flight_n=top * per_thread)
+    try:
+        with exception_tenants(cluster, handlers, oracle.resource_handlers):
+            if kernel_checks:
+                bodies = [cluster.review_bytes(k) for k in range(8)]
+                got, calls = capture_kernel_inputs(
+                    lambda: _burst(8, 1, lambda j: server.handle(
+                        route, bodies[j]))[0],
+                    names=('status_vm', 'fdet_select'))
+                base = len(bodies)
+                if not calls['status_vm'] or not calls['fdet_select']:
+                    raise AssertionError(f'phase 12: K1v or K1h was not '
+                                         f'called: {calls.keys()}')
+                out['held_to_plain'] = held = _held_to_plain(calls)
+                if held['k1_vm'] or held['k1h_fdet_select']:
+                    problems.append(f'hetero: kernels differ from their '
+                                    f'plain versions: {held}')
+                if held['adm_entries'] <= 0 or held['adm_cols'] <= 0:
+                    problems.append(f'hetero: K1v ran without admission '
+                                    f'entries: {held}')
+                bad = [j for j, b in enumerate(bodies)
+                       if got[j] != oracle.handle(route, b)]
+                if bad:
+                    problems.append(f'hetero: captured burst differs from '
+                                    f'the host loop at {bad}')
+            launches = {}
+            for n_threads in thread_counts:
+                n = n_threads * per_thread
+                idx = range(base, base + n)
+                reviews = [cluster.review_bytes(i) for i in idx]
+                exc = {cluster.request(i)['uid'] for i in idx
+                       if cluster.is_exception_tenant(
+                           cluster.request(i)['userInfo']['username'])}
+                base += n
+                batcher = handlers._get_batcher()
+                batcher.reset_stats()
+                recorder.reset()
+                kernels.reset_launches()
+                burst = {}
+
+                def block_run():
+                    burst['r'] = _burst(n_threads, per_thread,
+                                        lambda j: server.handle(
+                                            route, reviews[j]))
+
+                busy = None
+                if kernel_checks:
+                    # the card's busy time: CUDA events around each K1v
+                    # and K1h call of the block, summed after it
+                    busy, _calls = request_kernel_ms(
+                        block_run, reps=1,
+                        names=('status_vm', 'fdet_select'))
+                else:
+                    block_run()
+                got, wall = burst['r']
+                for k, v in kernels.LAUNCHES.items():
+                    launches[k] = launches.get(k, 0) + v
+                stats = batcher.stats()
+                paths, exc_paths = {}, {}
+                for rec in recorder.records():
+                    into = exc_paths if rec.uid in exc else paths
+                    into[rec.path] = into.get(rec.path, 0) + 1
+                t0 = time.perf_counter()
+                bad = [j for j in range(n)
+                       if got[j] != oracle.handle(route, reviews[j])]
+                block = {'threads': n_threads, 'decisions': n,
+                         'exception_decisions': len(exc),
+                         'wall_s': wall, 'decisions_per_s': n / wall,
+                         'occupancy_mean': stats['occupancy_mean'],
+                         'occupancy_p50': stats['occupancy_p50'],
+                         'dispatches': stats['dispatches'],
+                         'hetero_dispatches': stats['hetero_dispatches'],
+                         'hetero_occupancy_mean':
+                             stats['hetero_occupancy_mean'],
+                         'queue_wait_p50_ms': stats['queue_wait_p50_ms'],
+                         'shed': stats['shed'], 'paths': paths,
+                         'exception_paths': exc_paths,
+                         'device_busy_ms': busy,
+                         'device_idle_share': None if busy is None
+                         else 1 - busy / (wall * 1e3),
+                         'mismatches': len(bad),
+                         'check_s': time.perf_counter() - t0}
+                if keep:
+                    block['responses'] = list(zip(reviews, got))
+                out['blocks'].append(block)
+                on_batch = paths.get('batch', 0)
+                if bad:
+                    problems.append(f'hetero {n_threads}: {len(bad)} '
+                                    f'responses differ from the host loop: '
+                                    f'{bad[:10]}')
+                if paths.get('host_fallback'):
+                    problems.append(f'hetero {n_threads}: host_fallback '
+                                    f'decisions {paths}')
+                if on_batch < 0.99 * (n - len(exc)):
+                    problems.append(f'hetero {n_threads}: {on_batch} of '
+                                    f'{n - len(exc)} decisions of other '
+                                    f'tenants on batch: {paths}')
+                if sum(paths.values()) != n - len(exc):
+                    problems.append(f'hetero {n_threads}: {paths} recorded '
+                                    f'for {n - len(exc)} decisions')
+    finally:
+        provenance.disable()
+    out['launches'] = launches
+    occ = max(out['blocks'], key=lambda b: b['threads'])['occupancy_mean']
+    if top >= 8 and occ <= HET_OCCUPANCY_FLOOR:
+        problems.append(f'hetero: mean occupancy {occ} at {top} threads is '
+                        f'at or under {HET_OCCUPANCY_FLOOR}')
+    return out
+
+
+def _breaker_row(handlers, key):
+    for row in handlers._breakers.report():
+        if row['key'] == repr(key):
+            return row
+    return {'failures': 0}
+
+
+def chaos_drill(server, handlers, threads: int = CHAOS_THREADS,
+                per_thread: int = CHAOS_PER_THREAD) -> dict:
+    """(b) ``bench.py admission_chaos`` on the port: the fault-free
+    oracle pass of the synthetic cluster's reviews (seed 4321, every
+    8th a poison row), then the same reviews from ``threads`` threads
+    with the poison marker armed (``KTPU_FAULTS``'s
+    ``batcher_dispatch`` site): every response 200 with the oracle's
+    verdict, and ``poison_row`` sheds exactly the poison rows.  Then the
+    breaker drill (``_chaos_breaker_drill``): three dispatch failures
+    open the policy set's breaker, a request while open sheds
+    ``breaker_open``, and after the backoff a probe closes it."""
+    from kyverno_tpu_torch import faults
+    from kyverno_tpu_torch.conformance.loadgen import SyntheticCluster
+    from kyverno_tpu_torch.serving import breaker
+    cluster = SyntheticCluster(seed=4321, poison_ratio=1 / 8)
+    total = threads * per_thread
+    route = '/validate/fail'
+    policies = _enforce(handlers.cache, cluster.namespaces[0])
+    key = handlers._policy_key(policies)
+    batcher = handlers._get_batcher()
+
+    def send(i):
+        body, status = server.handle_request(route, cluster.review_bytes(i))
+        return status, json.loads(body.decode()).get('response')
+
+    out = {'requests': total, 'problems': []}
+    problems = out['problems']
+    try:
+        with exception_tenants(cluster, handlers):
+            faults.disable()
+            oracle = {i: send(i) for i in range(total + 8)}
+            bad = [i for i, (s, _r) in oracle.items() if s != 200]
+            if bad:
+                raise AssertionError(f'phase 12: oracle requests {bad} '
+                                     f'were not 200')
+            if handlers._breakers.state(key) != breaker.CLOSED:
+                raise AssertionError('phase 12: the breaker is not closed '
+                                     'before the poison wave')
+            faults.configure(cluster.fault_spec())
+            before = dict(batcher.stats()['shed'])
+            got, wall = _burst(threads, per_thread, send, strided=True)
+            after = dict(batcher.stats()['shed'])
+            faults.disable()
+            poison = after.get('poison_row', 0) - before.get('poison_row', 0)
+            out['wave'] = {
+                'wall_s': wall,
+                'non_200': sum(1 for s, _r in got if s != 200),
+                'verdict_mismatches': sum(
+                    1 for i, (_s, r) in enumerate(got) if r != oracle[i][1]),
+                'poison_rows_injected': cluster.poison_count(total),
+                'poison_rows_shed': poison,
+                'shed': {k: after.get(k, 0) - before.get(k, 0)
+                         for k in after}}
+            w = out['wave']
+            if w['non_200'] or w['verdict_mismatches']:
+                problems.append(f'chaos: {w["non_200"]} non-200 and '
+                                f'{w["verdict_mismatches"]} verdicts '
+                                f'different from the oracle')
+            if poison != w['poison_rows_injected']:
+                problems.append(f'chaos: shed(poison_row) = {poison}, '
+                                f'{w["poison_rows_injected"]} injected')
+        # every request of the drill rides the device path: no tenant
+        # holds exceptions (they change no verdict, so the oracle holds)
+        out['breaker'] = _chaos_breaker_drill(
+            handlers, policies, key, send, oracle, total, problems)
+    finally:
+        faults.disable()
+    return out
+
+
+def _chaos_breaker_drill(handlers, policies, key, send, oracle, base,
+                         problems) -> dict:
+    """The breaker's open → half-open → closed round trip
+    (``bench.py _chaos_breaker_drill``): each request's dispatch fails
+    twice (the original and the quarantine's solo retry, exhausted),
+    which is one breaker failure; each failure drops the scanner, so
+    the drill waits for the rebuild before the next.  Every request
+    answers 200 with the oracle's verdict through the host loop."""
+    from kyverno_tpu_torch import faults
+    from kyverno_tpu_torch.observability.metrics import global_registry
+    from kyverno_tpu_torch.serving import breaker
+    limit = handlers.DEVICE_FAILURE_LIMIT
+    drill = {'states': []}
+    i = base
+
+    def served(stage):
+        nonlocal i
+        status, resp = send(i)
+        if status != 200 or resp != oracle[i][1]:
+            raise AssertionError(f'phase 12: breaker drill {stage}: status '
+                                 f'{status}, verdict equal '
+                                 f'{resp == oracle[i][1]}')
+        i += 1
+
+    def note(stage):
+        state = handlers._breakers.state(key)
+        drill['states'].append({'stage': stage, 'state': state})
+        return state
+
+    if not handlers.wait_device_ready(policies, timeout=READY_S):
+        raise AssertionError('phase 12: no scanner before the breaker drill')
+    served('entry')     # one healthy dispatch: the failure count starts at 0
+    if note('entry') != breaker.CLOSED:
+        raise AssertionError('phase 12: breaker not closed entering the '
+                             'drill')
+    faults.configure(';'.join(
+        f'site={faults.SITE_BATCHER_DISPATCH},nth={n},exhaust=1'
+        for n in range(1, 2 * limit + 1)))
+    for k in range(limit):
+        served(f'trip {k}')
+        deadline = time.monotonic() + 10.0
+        while _breaker_row(handlers, key)['failures'] < k + 1 and \
+                time.monotonic() < deadline:
+            time.sleep(0.01)
+        if _breaker_row(handlers, key)['failures'] < k + 1:
+            raise AssertionError(f'phase 12: trip request {k} recorded no '
+                                 f'device failure')
+        if k + 1 < limit:
+            handlers.wait_device_ready(policies, timeout=READY_S)
+    faults.disable()
+    if note('tripped') != breaker.OPEN:
+        problems.append(f'chaos: {limit} dispatch failures did not open '
+                        f'the breaker')
+        return drill
+    report = breaker.debug_report()
+    if not any(row['state'] == breaker.OPEN for row in report['breakers']):
+        problems.append('chaos: /debug/breakers shows no open breaker')
+    registry = global_registry()
+    if registry is not None:
+        drill['open_gauge'] = registry.gauge_value(breaker.BREAKER_STATE,
+                                                   state=breaker.OPEN)
+    sheds = handlers._get_batcher().stats()['shed']
+    before = sheds.get('breaker_open', 0)
+    served('open')
+    drill['breaker_open_sheds'] = \
+        handlers._get_batcher().stats()['shed'].get('breaker_open', 0) - \
+        before
+    if drill['breaker_open_sheds'] < 1:
+        problems.append('chaos: no breaker_open shed while open')
+    backoff = max((row.get('reopens_in_s', 0.0)
+                   for row in report['breakers']), default=0.0)
+    drill['backoff_s'] = backoff
+    time.sleep(backoff + 0.1)
+    served('half-open probe')           # grants the probe: the rebuild
+    if not handlers.wait_device_ready(policies, timeout=READY_S):
+        problems.append('chaos: no rebuild in the half-open window')
+        return drill
+    note('half_open')
+    served('recovery')                  # the probe that closes it
+    deadline = time.monotonic() + 10.0
+    while handlers._breakers.state(key) != breaker.CLOSED and \
+            time.monotonic() < deadline:
+        time.sleep(0.02)
+    if note('recovered') != breaker.CLOSED:
+        problems.append(f'chaos: the breaker did not close: '
+                        f'{drill["states"]}')
+    if registry is not None and registry.gauge_value(
+            breaker.BREAKER_STATE, state=breaker.OPEN) > 0:
+        problems.append('chaos: the open-state gauge stayed up')
+    return drill
+
+
+def _probe_review(doc: dict, uid: str) -> bytes:
+    return json.dumps({
+        'apiVersion': 'admission.k8s.io/v1', 'kind': 'AdmissionReview',
+        'request': {'uid': uid, 'operation': 'CREATE',
+                    'kind': {'group': '', 'version': 'v1', 'kind': 'Pod'},
+                    'namespace': doc['metadata']['namespace'],
+                    'name': doc['metadata']['name'], 'object': doc,
+                    'userInfo': {'username': 'churn-probe'}}}).encode()
+
+
+def churn_drill(device, threads: int = CHURN_THREADS,
+                per_thread: int = CHURN_PER_THREAD, seed: int = 0) -> dict:
+    """(c) ``bench.py admission_policy_churn`` on the port, under
+    ``KTPU_PARTITIONS`` (set before this process builds a scanner): one
+    ``churn_schedule`` edit of the synthetic cluster's burst (seed
+    2026), retargeted to a policy that denies a probe Pod, lands at its
+    tick; the new text is enforced at once (the host loop serves while
+    the touched partition recompiles), the successor scanner hot-swaps
+    in with exactly that partition recompiled, and after the swap the
+    probe's denial carries the edit's marker and ``threads`` x
+    ``per_thread`` reviews run on the swapped scanner, held against the
+    host loop."""
+    import copy
+    import dataclasses
+    from kyverno_tpu_torch import smokepack
+    from kyverno_tpu_torch.api.policy import Policy
+    from kyverno_tpu_torch.conformance.loadgen import (SyntheticCluster,
+                                                       apply_churn)
+    from kyverno_tpu_torch.observability import metrics
+    from kyverno_tpu_torch.ops import kernels
+    from kyverno_tpu_torch.partition.plan import diff_plans
+    from kyverno_tpu_torch.partition.runtime import PARTITION_FALLBACKS
+    from kyverno_tpu_torch.webhooks.handlers import SCANNER_HOT_SWAPS
+    reg = metrics.global_registry()
+    if reg is None:
+        reg = metrics.MetricsRegistry()
+        metrics.set_global_registry(reg)
+    route = '/validate/fail'
+    cache, handlers, server, oracle = loadgen_server(device)
+    out = {'partitions_env': os.environ.get('KTPU_PARTITIONS', ''),
+           'problems': []}
+    problems = out['problems']
+    try:
+        live = _enforce(cache)
+        old = handlers._device_scanner(live)
+        if old is None or old._pset is None:
+            raise AssertionError('phase 12: the partitioned scanner is not '
+                                 'serving (KTPU_PARTITIONS unset or the '
+                                 'whole set fell back)')
+        rng = random.Random(seed)
+        probe = target = None
+        for i in range(LOADGEN_PROBES):
+            doc = smokepack.make_config4_pod(rng, i)
+            resp = json.loads(server.handle(
+                route, _probe_review(doc, f'probe-{i}')))['response']
+            msg = (resp.get('status') or {}).get('message', '')
+            hits = [j for j, p in enumerate(live) if p.name in msg]
+            if not resp.get('allowed', True) and hits:
+                probe = doc
+                target = max(hits, key=lambda j: len(live[j].name))
+                break
+        if probe is None:
+            raise AssertionError('phase 12: no probe Pod is denied')
+        cluster = SyntheticCluster(seed=2026)
+        total = threads * per_thread
+        event = dataclasses.replace(
+            cluster.churn_schedule(total, len(live))[0], policy_index=target)
+        out['event'] = dict(event.to_dict(), policy=live[target].name)
+        new_raws = apply_churn([copy.deepcopy(p.raw) for p in live], event)
+        swaps0 = reg.counter_value(SCANNER_HOT_SWAPS, kind='validate')
+        fallbacks0 = reg.counter_value(PARTITION_FALLBACKS)
+        kernels.reset_launches()
+        statuses = []
+        t_edit = t_enforce = None
+        for i in range(total):
+            if i == event.tick:
+                t_edit = time.perf_counter()
+                cache.warm_up([Policy(copy.deepcopy(d)) for d in new_raws])
+            if t_edit is not None and t_enforce is None and i % 2:
+                body, status = server.handle_request(
+                    route, _probe_review(probe, f'churn-p{i}'))
+                if event.marker() in body.decode('utf-8', 'replace'):
+                    t_enforce = time.perf_counter()
+            else:
+                body, status = server.handle_request(
+                    route, cluster.review_bytes(i))
+            statuses.append(status)
+        new_live = _enforce(cache)
+        swapped = handlers.wait_device_ready(new_live, timeout=READY_S)
+        t_swap = time.perf_counter()
+        new = handlers._device_scanner(new_live)
+        body, status = server.handle_request(
+            route, _probe_review(probe, 'churn-after-swap'))
+        statuses.append(status)
+        enforced = event.marker() in body.decode('utf-8', 'replace')
+        wave = [cluster.review_bytes(total + j) for j in range(total)]
+        got, wall = _burst(threads, per_thread,
+                           lambda j: server.handle_request(route, wave[j]))
+        statuses += [s for _b, s in got]
+        mismatches = [j for j, (b, _s) in enumerate(got)
+                      if b != oracle.handle(route, wave[j])]
+        out.update({
+            'requests': len(statuses),
+            'non_200': sum(1 for s in statuses if s != 200),
+            'enforcement_ms': None if t_enforce is None
+            else (t_enforce - t_edit) * 1e3,
+            'device_swap_s': t_swap - t_edit,
+            'enforced_after_swap': enforced,
+            'hot_swaps': int(reg.counter_value(SCANNER_HOT_SWAPS,
+                                               kind='validate') - swaps0),
+            'partition_fallbacks': int(reg.counter_value(
+                PARTITION_FALLBACKS) - fallbacks0),
+            'wave_wall_s': wall, 'mismatches': len(mismatches),
+            'launches': dict(kernels.LAUNCHES)})
+        if not swapped or new is None or new._pset is None:
+            problems.append('churn: the swap did not land a partitioned '
+                            'scanner')
+        else:
+            diff = diff_plans(old._pset.plan, new._pset.plan)
+            out.update(partitions=len(new._pset.runtimes),
+                       touched=sorted(diff.touched),
+                       recompiled=sorted(new._pset.recompiled()))
+            if len(diff.touched) != 1 or \
+                    out['recompiled'] != out['touched']:
+                problems.append(f'churn: touched {out["touched"]}, '
+                                f'recompiled {out["recompiled"]} (one '
+                                f'partition expected)')
+        if out['non_200']:
+            problems.append(f'churn: {out["non_200"]} non-200 responses')
+        if t_enforce is None or not enforced:
+            problems.append(f'churn: the edit\'s marker was not enforced '
+                            f'(before the swap {t_enforce is not None}, '
+                            f'after {enforced})')
+        if out['hot_swaps'] != 1:
+            problems.append(f'churn: {out["hot_swaps"]} hot swaps')
+        if out['partition_fallbacks']:
+            problems.append(f'churn: {out["partition_fallbacks"]} partition '
+                            f'fallbacks to the whole set')
+        if mismatches:
+            problems.append(f'churn: {len(mismatches)} responses after the '
+                            f'swap differ from the host loop')
+    finally:
+        handlers.shutdown()
+    return out
+
+
+def loadgen_child(args) -> int:
+    """(c) in a process of its own: ``KTPU_PARTITIONS`` set before any
+    scanner is built; writes the record to ``--loadgen-child``'s file."""
+    import torch
+    os.environ['KTPU_PARTITIONS'] = str(CHURN_PARTITIONS)
+    if args.device.startswith('cuda') and not torch.cuda.is_available():
+        _die('torch.cuda.is_available() is False')
+    rec = churn_drill(args.device, seed=args.seed)
+    with open(args.loadgen_child, 'w') as f:
+        json.dump(rec, f)
+    return 0
+
+
+#: the small kuttl suite of phase 12 and tests/test_torch_conformance.py,
+#: in the corpus' shapes: a policy, a Pod it denies (the ``if kubectl
+#: apply`` script), the Pod's absence, a Pod it admits, and the
+#: PolicyReport the reports daemon writes for it
+KUTTL_SUITE = {
+    '01-policy.yaml': '''apiVersion: kyverno.io/v1
+kind: ClusterPolicy
+metadata:
+  name: require-team-label
+spec:
+  validationFailureAction: Enforce
+  background: true
+  rules:
+    - name: check-team
+      match:
+        any:
+          - resources:
+              kinds: [Pod]
+      validate:
+        message: "label 'team' is required"
+        pattern:
+          metadata:
+            labels:
+              team: "?*"
+''',
+    '02-script.yaml': '''apiVersion: kuttl.dev/v1beta1
+kind: TestStep
+commands:
+  - script: |
+      if kubectl apply -f pod-bad.yaml
+      then
+        echo "Tested failed. Pod was created when it shouldn't have been."
+        exit 1
+      else
+        echo "Test succeeded. Pod was not created as intended."
+        exit 0
+      fi
+''',
+    'pod-bad.yaml': '''apiVersion: v1
+kind: Pod
+metadata:
+  name: badpod
+  namespace: default
+spec:
+  containers:
+    - name: nginx
+      image: nginx:1.25.3
+''',
+    '03-errors.yaml': '''apiVersion: v1
+kind: Pod
+metadata:
+  name: badpod
+  namespace: default
+''',
+    '04-pod-good.yaml': '''apiVersion: v1
+kind: Pod
+metadata:
+  name: goodpod
+  namespace: default
+  labels:
+    team: payments
+spec:
+  containers:
+    - name: nginx
+      image: nginx:1.25.3
+''',
+    '05-assert.yaml': '''apiVersion: wgpolicyk8s.io/v1alpha2
+kind: PolicyReport
+metadata:
+  name: cpol-require-team-label
+  namespace: default
+results:
+  - policy: require-team-label
+    rule: check-team
+    result: pass
+    resources:
+      - kind: Pod
+        name: goodpod
+summary:
+  pass: 1
+  fail: 0
+''',
+}
+
+
+def write_kuttl_suite(path: str, failing: bool = False) -> str:
+    """Write ``KUTTL_SUITE`` into ``path``; with ``failing`` its report
+    assert expects the admitted Pod to fail, which must raise
+    ``KuttlFailure``."""
+    os.makedirs(path, exist_ok=True)
+    for name, text in KUTTL_SUITE.items():
+        if failing and name == '05-assert.yaml':
+            text = text.replace('result: pass', 'result: fail')
+        with open(os.path.join(path, name), 'w') as f:
+            f.write(text)
+    return path
+
+
+def kuttl_drill(tmp: str, device) -> dict:
+    """The kuttl suite through ``run_suite(..., device=device)``: the
+    admission, background and reports daemons of the harness's cluster
+    on ``device``."""
+    from kyverno_tpu_torch.conformance.kuttl import run_suite
+    from kyverno_tpu_torch.ops import kernels
+    suite = write_kuttl_suite(os.path.join(tmp, 'kuttl-require-team'))
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    run_suite(suite, device=device)
+    return {'steps': len([n for n in KUTTL_SUITE if n[0].isdigit()]),
+            'wall_s': time.perf_counter() - t0,
+            'launches': dict(kernels.LAUNCHES)}
+
+
+def loadgen_phase(seed: int, tmp: str, device: str = 'cuda:0') -> dict:
+    """Phase 12: (a) and (b) here on one batch-mode handler set, (c) in
+    a child process (``--loadgen-child OUT``), then the kuttl suite.
+    On the card K1v (with K1i) and K1h must launch in (a) and (c), and
+    K1v in the kuttl suite; with ``device='cpu'`` the phase rehearses
+    without the kernel checks."""
+    on_card = str(device).startswith('cuda')
+    problems = []
+    t0 = time.perf_counter()
+    _cache, handlers, server, oracle = loadgen_server(device)
+    setup_s = time.perf_counter() - t0
+    try:
+        hetero = hetero_drill(server, handlers, oracle,
+                              kernel_checks=on_card)
+        chaos = chaos_drill(server, handlers)
+    finally:
+        handlers.shutdown()
+    problems += hetero['problems'] + chaos['problems']
+    out_path = os.path.join(tmp, 'churn.json')
+    logs = (os.path.join(tmp, 'churn.out'), os.path.join(tmp, 'churn.err'))
+    cmd = [sys.executable, os.path.abspath(__file__), '--seed', str(seed),
+           '--device', str(device), '--loadgen-child', out_path]
+    t1 = time.perf_counter()
+    with open(logs[0], 'w') as o, open(logs[1], 'w') as e:
+        child = subprocess.run(cmd, cwd=HERE, stdout=o, stderr=e,
+                               timeout=LOADGEN_CHILD_TIMEOUT_S)
+    if child.returncode != 0 or not os.path.exists(out_path):
+        with open(logs[1]) as e:
+            tail = e.read()[-3000:]
+        raise AssertionError(f'phase 12: the churn child exited '
+                             f'{child.returncode}:\n{tail}')
+    with open(out_path) as f:
+        churn = json.load(f)
+    churn['process_s'] = time.perf_counter() - t1
+    problems += churn['problems']
+    kuttl = kuttl_drill(tmp, device)
+    if on_card:
+        for name, launched in (('hetero', hetero['launches']),
+                               ('churn', churn['launches'])):
+            for k in SCAN_KERNELS:
+                if launched.get(k, 0) <= 0:
+                    problems.append(f'{name}: {k} never launched')
+        if kuttl['launches'].get('k1_vm', 0) <= 0:
+            problems.append('kuttl: K1v never launched')
+    return {'setup_s': setup_s, 'hetero': hetero, 'chaos': chaos,
+            'churn': churn, 'kuttl': kuttl, 'problems': problems,
+            'launches': {k: hetero['launches'].get(k, 0) +
+                         churn['launches'].get(k, 0) +
+                         kuttl['launches'].get(k, 0)
+                         for k in set(hetero['launches']) |
+                         set(churn['launches']) | set(kuttl['launches'])}}
+
+
+def loadgen_line(lg: dict) -> dict:
+    """The phase's printed line: per thread count of (a), the chaos
+    wave and breaker round trip of (b), the churn of (c) and the kuttl
+    suite."""
+    h, c, ch = lg['hetero'], lg['chaos'], lg['churn']
+    return {
+        'hetero': [{k: b[k] for k in (
+            'threads', 'decisions_per_s', 'occupancy_mean',
+            'occupancy_p50', 'hetero_dispatches', 'queue_wait_p50_ms',
+            'device_busy_ms', 'device_idle_share', 'shed', 'paths',
+            'exception_decisions', 'mismatches')}
+            for b in h['blocks']],
+        'held_to_plain': h.get('held_to_plain'),
+        'chaos': dict(c.get('wave', {}), breaker=[
+            s['state'] for s in c.get('breaker', {}).get('states', [])],
+            breaker_open_sheds=c.get('breaker', {}).get(
+                'breaker_open_sheds')),
+        'churn': {k: ch.get(k) for k in (
+            'event', 'requests', 'non_200', 'enforcement_ms',
+            'device_swap_s', 'enforced_after_swap', 'hot_swaps',
+            'partitions', 'touched', 'recompiled', 'partition_fallbacks',
+            'mismatches', 'process_s')},
+        'kuttl': lg['kuttl'], 'launches': lg['launches']}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--pods', type=int, default=MIN_PODS,
@@ -3766,6 +4587,9 @@ def main(argv=None) -> int:
                          '--api-server and write its result to OUT')
     ap.add_argument('--api-server', metavar='URL',
                     help='(--restart-child) the API server')
+    ap.add_argument('--loadgen-child', metavar='OUT',
+                    help='run phase 12c (policy churn) and write its result '
+                         'to OUT')
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, 'kyverno_tpu_torch')):
         _die('kyverno_tpu_torch/ is not beside this script; run it from a '
@@ -3783,6 +4607,8 @@ def main(argv=None) -> int:
         if not args.api_server:
             _die('--restart-child needs --api-server')
         return restart_child(args)
+    if args.loadgen_child:
+        return loadgen_child(args)
     import torch
     if not torch.cuda.is_available():
         _die('torch.cuda.is_available() is False: this script measures '
@@ -3971,6 +4797,15 @@ def main(argv=None) -> int:
     if rs11['problems']:
         raise AssertionError('restart: ' + '; '.join(rs11['problems']))
     phase_done('restart')
+
+    # 12. the load generator's drills and the kuttl harness -------------
+    with tempfile.TemporaryDirectory(prefix='ktpu-loadgen-') as tmp:
+        lg = loadgen_phase(args.seed, tmp)
+    print('loadgen ' + json.dumps(loadgen_line(lg)), flush=True)
+    report['loadgen'] = lg
+    if lg['problems']:
+        raise AssertionError('loadgen: ' + '; '.join(lg['problems']))
+    phase_done('loadgen')
     for r in records:
         # K1v, K1h, K1c and K3 are held at the admission webhook's shapes:
         # its launches, and the times and bound of the kernel at the
@@ -4006,6 +4841,9 @@ def main(argv=None) -> int:
             'restart': rs11['second']['reports']['launches'].get(
                 r['name'], 0) + rs11['second']['admission'][
                     'launches'].get(r['name'], 0),
+            # phase 12: (a) the heterogeneous blocks, (c) the churn
+            # process and the kuttl suite's daemons
+            'loadgen': lg['launches'].get(r['name'], 0),
             # the eager walks that hold K1v against its plain version
             # (K1c runs only there: on the main path its DP is in K1v)
             'k1v_checks': chunk_stats['k1v_check']['capture_launches'].get(

@@ -1,0 +1,265 @@
+"""Machine-readable registry of every ``KTPU_*`` environment knob.
+
+This table is the single source of truth three consumers read:
+
+* the **KTPU401/402 lint passes** (``analysis/envreg.py``) — every
+  ``KTPU_*`` environ read in the tree must appear here, and every
+  entry here must have at least one read site (dead-knob detection);
+* the **README knob table** — generated by
+  ``python -m kyverno_tpu_torch.analysis --knob-table`` and pasted verbatim;
+* **operators** — ``Knob.help`` is written for them, not for us.
+
+Adding a knob without registering it fails tier-1
+(``tests/test_static_analysis.py``), which is the point: an
+undocumented tuning knob is indistinguishable from a dead one.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple
+
+
+class Knob(NamedTuple):
+    name: str
+    default: str   # rendered default ('' = unset)
+    kind: str      # int | float | bool | path | str
+    module: str    # read-site module, for cross-reference
+    help: str
+
+
+def _k(name, default, kind, module, help):  # noqa: A002 - table DSL
+    return name, Knob(name, default, kind, module, help)
+
+
+KNOBS: Dict[str, Knob] = dict([
+    # -- device scan pipeline ------------------------------------------------
+    _k('KTPU_SCAN_CHUNK', '16384', 'int', 'compiler/scan.py',
+       'Rows per device chunk (the bulk canonical batch capacity); '
+       'large scans stream fixed-size chunks.'),
+    _k('KTPU_SMALL_BATCH', '64', 'int', 'compiler/scan.py',
+       'Batches at or below this size run on the host-local CPU backend '
+       'instead of paying a remote-accelerator round trip; also the '
+       'small canonical batch capacity (compiler/shapes.py).'),
+    _k('KTPU_CANONICAL_CAPS', '{KTPU_SMALL_BATCH, KTPU_SCAN_CHUNK}',
+       'str', 'compiler/shapes.py',
+       'Comma-separated canonical batch capacities (full override of '
+       'the default two-entry table).  Every batch pads to the smallest '
+       'capacity holding it and the evaluator masks the tail rows on '
+       'the device, so this list IS the set of batch row shapes — each '
+       'extra entry is one more buffer size to allocate and warm.'),
+    _k('KTPU_ENCODE_PROCS', '2 (0 on single-CPU hosts)', 'int',
+       'compiler/scan.py',
+       'Forked encoder worker processes; 0 encodes in-process.'),
+    _k('KTPU_PIPELINE_DEPTH', '2', 'int', 'compiler/pipeline.py',
+       'In-flight chunk budget of the streaming scan pipeline '
+       '(encode → h2d → device_eval → d2h legs on worker threads). '
+       'Intake backpressures at the bound instead of buffering, so '
+       'this knob IS the host-side memory ceiling per scan: higher '
+       'hides more stage latency, costs one chunk of lane tensors '
+       'each.'),
+    _k('KTPU_REPORT_FLUSH_ROWS', '8192', 'int', 'compiler/scan.py',
+       'Rows per incremental report-assembly window: each device '
+       'chunk assembles and yields report rows in sub-windows of at '
+       'most this many rows, bounding the resident decoded-result '
+       'footprint independently of the chunk capacity.'),
+    _k('KTPU_ENCODE_TIMEOUT', '120', 'float', 'compiler/scan.py',
+       'Seconds before a forked encoder chunk is presumed dead and '
+       're-encoded in-process.'),
+    _k('KTPU_FDET_K', '32', 'int', 'ops/eval.py',
+       'Per-row budget of fail-detail cells shipped device-to-host; '
+       'overflow rows degrade to exact host materialization.'),
+    _k('KTPU_ADM_LANES', '1', 'bool', 'compiler/admission.py',
+       'Decide subject/role admission match for eligible rules '
+       'in-graph from per-row admission lanes (heterogeneous-traffic '
+       'batching); 0 keeps every admission-dependent match on the '
+       'host matcher (the bit-identity oracle).'),
+    # -- mutate fast path ----------------------------------------------------
+    _k('KTPU_FAST_MUTATE', '1', 'bool', 'compiler/apply.py',
+       'Enable the precompiled bulk-mutation fast path (1) or keep '
+       'every resource on the engine loop (0).'),
+    _k('KTPU_APPLY_PROCS', '8', 'int', 'compiler/apply.py',
+       'Upper bound on forked bulk-apply worker processes.'),
+    # -- admission serving ---------------------------------------------------
+    _k('KTPU_SERVING', 'sync', 'str', 'webhooks/handlers.py',
+       'Admission serving mode: "batch" coalesces concurrent '
+       'same-policy-set validate (CREATE/UPDATE) and mutate requests '
+       'into shared device dispatches (serving/); "sync" scans per '
+       'request.'),
+    _k('KTPU_MUTATE_DEVICE', '1', 'bool', 'webhooks/handlers.py',
+       'Serve lowered strategic-merge / json6902 mutate policy sets '
+       'as batched device edit-list dispatches (kyverno_tpu_torch/mutate/); '
+       '0 keeps every mutate request on the host engine loop (the '
+       'bit-identity oracle).'),
+    _k('KTPU_BATCH_WINDOW_MS', '2', 'float', 'serving/batcher.py',
+       'Micro-batch flush window: a pending admission request waits at '
+       'most this long for riders before its batch dispatches.'),
+    _k('KTPU_BATCH_MAX', 'the small canonical capacity (64)', 'int',
+       'serving/batcher.py',
+       'Occupancy that flushes a batch immediately.  Batches are '
+       'ragged (padded to a canonical capacity, tail rows masked '
+       'in-graph), so ANY occupancy reuses a compiled executable — '
+       'this is purely a latency/amortization trade, not a shape '
+       'constraint.'),
+    _k('KTPU_QUEUE_CAP', '256', 'int', 'serving/batcher.py',
+       'Bounded admission queue capacity; requests arriving at a full '
+       'queue shed to the host engine loop (never a 500).'),
+    _k('KTPU_SHED_DEADLINE_MS', '500', 'float', 'serving/batcher.py',
+       'How long a webhook thread waits on its batched future before '
+       'shedding to the host engine loop (tightened per request to '
+       'half the AdmissionReview timeoutSeconds when present, so the '
+       'host fallback still fits the API server budget).'),
+    # -- failure injection + degradation ------------------------------------
+    _k('KTPU_FAULTS', '', 'str', 'faults/__init__.py',
+       'Fault-injection spec for chaos drills: ";"-separated clauses '
+       'of "site=<name>,p=<prob>|nth=<call>|marker=<label>'
+       '[,error=<class>][,delay_ms=<ms>][,seed=<int>]".  A delay_ms '
+       'clause stalls the site instead of raising (straggler '
+       'injection).  Unset (the default) the harness is a no-op and '
+       'every hot path is bit-identical to a build without it.'),
+    _k('KTPU_STAGE_RETRIES', '1', 'int', 'compiler/pipeline.py',
+       'Transparent retry attempts per (chunk, stage) beyond the '
+       'first in the streaming scan pipeline before the error '
+       'surfaces (exponential backoff between attempts).'),
+    _k('KTPU_BREAKER_CAP', '64', 'int', 'serving/breaker.py',
+       'Bound on tracked per-policy-set circuit breakers; evictions '
+       'prefer closed entries and count on '
+       'kyverno_tpu_breaker_evictions_total.'),
+    _k('KTPU_BREAKER_BACKOFF_MS', '1000', 'float', 'serving/breaker.py',
+       'Base backoff a tripped policy set spends quarantined on the '
+       'host loop before its half-open probe; doubles per re-trip.'),
+    _k('KTPU_BREAKER_BACKOFF_MAX_MS', '60000', 'float',
+       'serving/breaker.py',
+       'Ceiling on the exponential breaker backoff.'),
+    # -- AOT executable cache ------------------------------------------------
+    _k('KTPU_AOT', '1', 'bool', 'aotcache/store.py',
+       'Enable the persistent AOT executable disk cache.'),
+    _k('KTPU_AOT_CACHE_DIR', '<repo>/.cache/aot', 'path',
+       'aotcache/store.py',
+       'Directory for persisted K1v programs (lowered bytecode).'),
+    _k('KTPU_AOT_CACHE', '', 'path', 'aotcache/store.py',
+       'Legacy alias for KTPU_AOT_CACHE_DIR (consulted second).'),
+    _k('KTPU_AOT_CACHE_MAX', str(8 << 30), 'int', 'aotcache/store.py',
+       'LRU size bound, in bytes, of the AOT executable store.'),
+    _k('KTPU_COMPILE_CACHE', '<repo>/kyverno_tpu_torch/_build', 'path',
+       'ops/_build.py',
+       'Directory of the nvcc-built CUDA kernel libraries (a pinned '
+       'directory is scoped by host CPU features and codegen-relevant '
+       'env).'),
+    _k('KTPU_WARM', '1', 'bool', 'aotcache/warmer.py',
+       'Start the background warm-up thread that brings the '
+       'admission-shape executable to serving readiness.'),
+    # -- partitioned compilation (incremental policy churn) ------------------
+    _k('KTPU_PARTITIONS', '0', 'int', 'partition/plan.py',
+       'Split the policy set into this many stable partitions compiled '
+       'and cached independently: a policy edit recompiles only its '
+       'partition and per-partition verdict-cache generations keep '
+       'unaffected verdicts replaying.  0 (the default) keeps the '
+       'monolithic whole-set compile — the bit-identity oracle.'),
+    _k('KTPU_PARTITION_EVAL_CACHE', '128', 'int', 'partition/runtime.py',
+       'Process-wide bound on cached per-partition evaluators (keyed '
+       'by partition fingerprint, LRU beyond it); a scanner rebuild '
+       'after policy churn reuses every partition whose fingerprint '
+       'is unchanged instead of recompiling it.'),
+    # -- verdict cache (incremental rescans) ---------------------------------
+    _k('KTPU_VERDICT_CACHE', '1', 'bool', 'verdictcache/store.py',
+       'Enable the digest-keyed verdict cache for background rescans '
+       '(0/off: every reconcile runs the dense full scan — the '
+       'correctness oracle; output is bit-identical either way).'),
+    _k('KTPU_VERDICT_CACHE_DIR', '<repo>/.cache/verdicts', 'path',
+       'verdictcache/store.py',
+       'Directory for persisted verdict-row snapshots (one per '
+       'policy-set fingerprint × engine rev); empty keeps the cache '
+       'memory-only.'),
+    _k('KTPU_VERDICT_CACHE_MAX', str(256 << 20), 'int',
+       'verdictcache/store.py',
+       'On-disk byte budget for verdict snapshots; oldest cache '
+       'generations are LRU-evicted beyond it.'),
+    # -- observability -------------------------------------------------------
+    _k('KTPU_D2H_STALL_S', '30', 'float', 'observability/device.py',
+       'Device-to-host readback stall watchdog threshold, seconds.'),
+    _k('KTPU_FLIGHT_N', '512', 'int', 'observability/provenance.py',
+       'Decision flight-recorder ring size (last N decision records, '
+       'plus last N error/shed records kept separately); 0 disables '
+       'decision provenance entirely.'),
+    _k('KTPU_FLIGHT_DUMP_DIR', '<repo>/.cache/flight', 'path',
+       'observability/provenance.py',
+       'Directory for automatic flight-recorder JSONL dumps (fired by '
+       'the d2h stall watchdog and scan errors); empty disables '
+       'dumps.'),
+    _k('KTPU_TRACE_JSONL_MAX_BYTES', str(64 << 20), 'int',
+       'observability/tracing.py',
+       'Size budget for the JSONL span-export file; on overflow the '
+       'current file rotates to <path>.1 (one rotated generation '
+       'kept). 0 disables rotation.'),
+    _k('KTPU_EXEC_LEDGER_N', '256', 'int',
+       'observability/executables.py',
+       'Executable lifecycle-ledger capacity (records, LRU beyond '
+       'it); 0 disables the ledger entirely.'),
+    _k('KTPU_SLO_WINDOW_S', '0', 'float', 'observability/slo.py',
+       'Sliding window, in seconds, for the admission-latency SLO '
+       'engine (burn rate computed over the full window and its '
+       'window/12 short slice); 0 (the default) disables the engine '
+       'entirely — admission paths are bit-identical to a build '
+       'without it.'),
+    _k('KTPU_SLO_P99_MS', '500', 'float', 'observability/slo.py',
+       'Admission-latency objective, milliseconds: a decision slower '
+       'than this spends error budget.'),
+    _k('KTPU_SLO_TARGET', '0.99', 'float', 'observability/slo.py',
+       'Fraction of decisions that must meet KTPU_SLO_P99_MS; the '
+       'error budget is 1 - target.'),
+    _k('KTPU_TIMELINE', '1', 'bool', 'observability/timeline.py',
+       'Arm the per-chunk pipeline timeline recorder when the '
+       'observability stack configures it; 0 keeps the recorder off '
+       'entirely — the scan path is bit-identical to a build without '
+       'it (same contract as the flight recorder and the SLO '
+       'engine).'),
+    _k('KTPU_TIMELINE_N', '4096', 'int', 'observability/timeline.py',
+       'Per-scan timeline event budget (enqueue/exec/retry/block '
+       'intervals); events beyond it are counted as dropped, never '
+       'buffered, so the recorder stays bounded however long a scan '
+       'streams.'),
+    _k('KTPU_PROFILE_DIR', '<repo>/.cache/profiles', 'path',
+       'observability/profiling.py',
+       'Directory for on-demand deep-profile captures '
+       '(/debug/profile and SLO-burn auto-captures); bounded to the '
+       'newest 8 capture directories.'),
+    _k('KTPU_FLEET', '1', 'bool', 'observability/fleet.py',
+       'Arm the fleet observatory (mesh-step telemetry, straggler '
+       'blame, cross-host metric federation) when the observability '
+       'stack configures it; 0 keeps it off entirely — the mesh '
+       'dispatch path is bit-identical to a build without it.'),
+    _k('KTPU_FLEET_SKEW_WINDOW', '16', 'int', 'observability/fleet.py',
+       'Sliding window, in mesh steps per mesh shape, over which the '
+       'skew analyzer decides a straggler is sustained (minimum 2); '
+       'sustained skew fires a rate-limited deep-profile capture.'),
+    _k('KTPU_METRIC_SERIES_MAX', '512', 'int',
+       'observability/metrics.py',
+       'Per-metric label-series cap in the metrics registry; new '
+       'label sets beyond it are refused and counted on '
+       'kyverno_tpu_metric_series_dropped_total{metric=...} (existing '
+       'series keep updating).'),
+    # -- background controllers ----------------------------------------------
+    _k('KTPU_AUTH_TTL', '60', 'float', 'background/generate.py',
+       'Seconds a generate-controller SSAR auth decision stays '
+       'cached before re-checking.'),
+    # -- static analysis -----------------------------------------------------
+    _k('KTPU_LINT_TAINT_DEPTH', '3', 'int', 'analysis/jitgraph.py',
+       'Interprocedural taint bound for ktpu-lint, in call edges '
+       'from a device stage: a cast/branch on a tensor-tainted value '
+       'this many edges below the entry is still a KTPU102/103 '
+       'finding; one edge further is silence.  Raising it deepens '
+       'the analysis at the cost of analyzer wall time.'),
+])
+
+
+def render_knob_table() -> str:
+    """The README ``KTPU_*`` table, generated so docs cannot drift
+    from the registry."""
+    rows = ['| Variable | Default | Type | Read in | Purpose |',
+            '|---|---|---|---|---|']
+    for name in sorted(KNOBS):
+        k = KNOBS[name]
+        default = k.default if k.default else '(unset)'
+        rows.append(f'| `{k.name}` | `{default}` | {k.kind} | '
+                    f'`{k.module}` | {k.help} |')
+    return '\n'.join(rows)

@@ -1895,6 +1895,7 @@ def build_evaluator(cps: CompiledPolicySet, device=None):
         def status_lanes(self, packed) -> Dict[str, torch.Tensor]:
             """The lane dict the eager walk reads."""
             t = unpack_batch(packed, self.status_layout)
+            # ktpu: noqa[KTPU103] -- t is the lane dict: tests its size
             if not t:
                 # slot-free policy sets (e.g. pure deny-by-subject rules
                 # — exactly the admission-lane vocabulary) still need one
@@ -2125,6 +2126,8 @@ def _probe_layout(cps: CompiledPolicySet):
     smallest widths: every lane the status trees can read, for the
     build-time routing of ``ops/vm.py``."""
     from ..compiler.encode import encode_batch
+    # ktpu: noqa[KTPU204] -- a build-time probe of the lane widths; the
+    # one-row batch is never dispatched
     return pack_batch(encode_batch([], cps, padded_n=1).tensors())[1]
 
 
@@ -2165,6 +2168,7 @@ class CompactOut:
     def host(self) -> Tuple[np.ndarray, np.ndarray]:
         """``(out8, out32)`` on the host from one copy of ``rows`` (on
         the card it waits for the call's device work)."""
+        # ktpu: noqa[KTPU101] -- the K1 call's one readback
         return kernels.fdet_views(self.rows.cpu().numpy(), self.n8, self.k)
 
 

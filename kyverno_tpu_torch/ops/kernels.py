@@ -136,6 +136,7 @@ def _status_vm(packed, program, counter):
     # status_vm, and with ``counter`` (an int64 CUDA tensor [1]) the
     # instructions the launch interprets added to it
     from .vm import BUFFERS
+    # ktpu: noqa[KTPU102] -- packed is the dict of buffers: tests its size
     _check(bool(packed), 'packed holds no buffer')
     ts = list(packed.values())
     rows = ts[0].shape[0]
@@ -553,7 +554,7 @@ def k3_pack(lanes: Dict[str, np.ndarray], pin: bool = False
     r, s = tag.shape
     layout = k3_layout(r, s, sb.shape[2])
     host = torch.empty(layout.nbytes, dtype=torch.uint8, pin_memory=pin)
-    flat = host.numpy()
+    flat = host.numpy()  # ktpu: noqa[KTPU101] -- a host buffer's view
     for (name, dt), off in zip(_K3_LANES, layout.offsets):
         a = lanes[name]
         shape = _k3_shape(name, r, s, layout.width)
@@ -633,7 +634,7 @@ def _k3_check(lanes: Tuple[torch.Tensor, K3Layout],
         # the card wrapper never reads rule_start back (a host sync)
         _check(rs.device.type == 'cpu',
                'k3_mutate on the card takes the host bounds of rule_start')
-        bounds = rs.tolist()
+        bounds = rs.tolist()  # ktpu: noqa[KTPU101] -- on the CPU, as checked
     _check(len(bounds) == rs.numel(),
            lambda: f'{len(bounds)} bounds for a rule_start of {rs.numel()}')
     k3_check_bounds(bounds, s)

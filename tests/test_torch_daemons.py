@@ -417,10 +417,10 @@ def test_warm_up_over_https_on_the_cpu(tmp_path, monkeypatch):
     from kyverno_tpu_torch.policycache import cache as pcache
     monkeypatch.setenv('KTPU_AOT_CACHE_DIR', str(tmp_path / 'aot'))
     setup = Setup('t', ['--disable-metrics'], client=_cluster(FakeClient))
-    port = chip_smoke._free_port()
-    daemon = AdmissionController(setup, port=port, tls=True, device='cpu')
+    daemon = AdmissionController(setup, port=0, tls=True, device='cpu')
     try:
         daemon.server.start()
+        port = daemon.server.port
         daemon.tick()
         ca = daemon.cert_renewer.ca_bundle()
         assert daemon.warmer.wait(120)

@@ -8,6 +8,7 @@ default to the CUDA card."""
 import ast
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -28,7 +29,12 @@ PORTED = {'__init__.py', 'ops/eval.py', 'compiler/scan.py',
           'cmd/reports_controller.py', 'controllers/leaderelection.py',
           'aotcache/keys.py', 'compiler/aot.py',
           'cmd/admission_controller.py', 'reports/types.py',
-          'dclient/http_client.py'}
+          'dclient/http_client.py', 'conformance/kuttl.py',
+          'analysis/__init__.py', 'analysis/core.py',
+          'analysis/jitgraph.py', 'analysis/trace_safety.py',
+          'analysis/retrace.py', 'analysis/taxonomy.py',
+          'analysis/envreg.py', 'analysis/knobs.py',
+          'analysis/catalog_pass.py', 'analysis/concurrency.py'}
 #: verbatim copies whose absolute self-import was renamed, by line
 REWRITTEN = {'engine/jmespath/__init__.py': {5}}
 
@@ -352,10 +358,41 @@ def test_port_has_no_module_missing_from_the_layout():
     """Every module of the port either mirrors a JAX-package module at
     the same relative path or is one of the port's own."""
     own = {'device.py', 'smokepack.py', 'ops/kernels.py', 'ops/_build.py',
-           'ops/vm.py'}
+           'ops/vm.py', 'analysis/__main__.py'}
     extra = [rel for rel, _p in _port_sources()
              if not os.path.exists(os.path.join(REF, rel)) and rel not in own]
     assert extra == []
+
+
+def test_every_module_of_the_jax_package_has_its_port():
+    """The port does everything the JAX package does: each ``*.py`` of
+    ``kyverno_tpu/`` has a counterpart at the same relative path."""
+    ref = set()
+    for dirpath, _dirs, files in os.walk(REF):
+        ref.update(os.path.relpath(os.path.join(dirpath, f), REF)
+                   for f in files if f.endswith('.py'))
+    port = {rel for rel, _p in _port_sources()}
+    assert sorted(ref - port) == []
+
+
+def test_kuttl_differs_from_its_reference_only_by_the_device_seam():
+    """``conformance/kuttl.py`` is the reference's but for the
+    ``device`` its cluster hands the admission and reports daemons."""
+    import difflib
+    port = open(os.path.join(PORT, 'conformance', 'kuttl.py'),
+                encoding='utf-8').read().split('\n')
+    ref = open(os.path.join(REF, 'conformance', 'kuttl.py'),
+               encoding='utf-8').read().split('\n')
+    diff = [ln for ln in difflib.unified_diff(ref, port, n=0, lineterm='')
+            if ln[:1] in '+-' and not ln.startswith(('+++', '---'))]
+    added = [ln[1:] for ln in diff if ln[0] == '+']
+    removed = [ln[1:] for ln in diff if ln[0] == '-']
+    assert added and all('device' in ln for ln in added), added
+    # the code lines, the seam taken out, are the reference's lines
+    seamless = [re.sub(r'(, )?device=(None|device)', '', ln) for ln in added
+                if '``' not in ln and 'torch device' not in ln]
+    docstring = [ln for ln in removed if ln.endswith('steps."""')]
+    assert sorted(seamless + docstring) == sorted(removed), diff
 
 
 def test_vm_lowering_imports_neither_jax_nor_the_jax_package():
