@@ -91,27 +91,25 @@ _ENCODER_PALETTES = None
 
 def _encode_worker(args):
     global _ENCODER_PALETTES
-    docs, contexts, padded_n = args
+    docs, contexts, padded_n, timed = args
     if _ENCODER_PALETTES is None:
         from .encode import LaneArena
         _ENCODER_PALETTES = LaneArena(max_pool=0)
     # the fork inherits the parent's telemetry globals, but its metric
-    # increments and contextvars die with the process — the pipeline
-    # threads re-install the scan's ScanCapture, and this is the
-    # process-side analogue: measure into a fresh local capture and
-    # ship the stage seconds (plus the wall interval, for the
+    # increments and contextvars die with the process — measure here
+    # and ship the stage seconds (plus the wall interval, for the
     # timeline) home with the tensors; the resolving pipeline thread
-    # re-attributes them via devtel.merge_worker_stages.
-    from ..observability import device as devtel
-    cap = devtel.ScanCapture()
+    # re-attributes them via devtel.merge_worker_stages.  ``timed``
+    # (the parent's stage would record) adds the worker's CPU seconds.
     t0 = time.monotonic()
-    with devtel.install_capture(cap):
-        batch = encode_batch(docs, _ENCODER_CPS, padded_n=padded_n,
-                             contexts=contexts, arena=_ENCODER_PALETTES)
+    c0 = time.process_time() if timed else 0.0
+    batch = encode_batch(docs, _ENCODER_CPS, padded_n=padded_n,
+                         contexts=contexts, arena=_ENCODER_PALETTES)
     t1 = time.monotonic()
-    cap.add('encode', t1 - t0)
-    return batch.tensors(), dict(cap.stages), \
-        (t0, t1, __import__('os').getpid())
+    stages = {'encode': t1 - t0}
+    if timed:
+        stages['encode.cpu'] = time.process_time() - c0
+    return batch.tensors(), stages, (t0, t1, __import__('os').getpid())
 
 
 class _EncoderPool:
@@ -148,9 +146,9 @@ class _EncoderPool:
                 return False
         return True
 
-    def submit(self, docs, contexts, padded_n):
-        return self._pool.apply_async(_encode_worker,
-                                      ((docs, contexts, padded_n),))
+    def submit(self, docs, contexts, padded_n, timed=False):
+        return self._pool.apply_async(
+            _encode_worker, ((docs, contexts, padded_n, timed),))
 
     def close(self) -> None:
         if self._pool is not None:
@@ -709,8 +707,10 @@ class BatchScanner:
             part_ctx = contexts[start:start + chunk] \
                 if contexts is not None else None
             cm = match[start:start + len(part)] if match is not None \
-                else (match_fn(start, part) if match_fn is not None
-                      else None)
+                else None
+            if cm is None and match_fn is not None:
+                with devtel.stage('match', {'rows': len(part)}):
+                    cm = match_fn(start, part)
             # canonical capacity padding (compiler/shapes.py): every
             # part pads to one of the few canonical row shapes and the
             # evaluator masks the tail rows via the __rowvalid__ lane,
@@ -722,8 +722,8 @@ class BatchScanner:
             enc = batch = None
             if use_procs:
                 try:
-                    enc = self._encoder_pool.submit(part, part_ctx,
-                                                    bucket)
+                    enc = self._encoder_pool.submit(
+                        part, part_ctx, bucket, devtel.active())
                 except Exception:  # noqa: BLE001 - fall back in-process
                     enc = None
             if enc is None:
@@ -818,6 +818,7 @@ class BatchScanner:
                                        'rows': ln}) as g:
                     o8, o32 = out.host()
                     g.add_d2h_bytes(out.rows.numel())
+                devtel.merge_device_time(out.timer)
                 s, d, fd, adm = expand_compact(o8, o32,
                                                self._evaluator)
                 self._free_inputs(t, out)
@@ -825,6 +826,7 @@ class BatchScanner:
                 release_chunk(p)
                 return (start, s[:ln], d[:ln], fd[:ln],
                         adm[:ln] if adm is not None else None, cm)
+            timer = getattr(out, 'timer', None)
             s, d, fd = out
             if self.mesh is not None:
                 from ..observability import fleet
@@ -856,6 +858,7 @@ class BatchScanner:
                                    'rows': ln}) as g:
                 s, d, fd = (arr.cpu().numpy()[:ln] for arr in (s, d, fd))
                 g.add_d2h_bytes(s.nbytes + d.nbytes + fd.nbytes)
+            devtel.merge_device_time(timer)
             self._free_inputs(t, out)
             cm = p['cm']
             release_chunk(p)
@@ -941,8 +944,10 @@ class BatchScanner:
             part_ctx = contexts[start:start + chunk] \
                 if contexts is not None else None
             cm = match[start:start + len(part)] if match is not None \
-                else (match_fn(start, part) if match_fn is not None
-                      else None)
+                else None
+            if cm is None and match_fn is not None:
+                with devtel.stage('match', {'rows': len(part)}):
+                    cm = match_fn(start, part)
             bucket = chunk if n > chunk else canonical_capacity(
                 len(part), chunk=chunk, small=self.SMALL_BATCH)
             encs = []
@@ -1014,6 +1019,7 @@ class BatchScanner:
                                           for arr in out)
                         g.add_d2h_bytes(s_k.nbytes + d_k.nbytes +
                                         fd_k.nbytes)
+                    devtel.merge_device_time(getattr(out, 'timer', None))
                     self._free_inputs(t, out)
                     parts_out.append((s_k[:ln], d_k[:ln], fd_k[:ln]))
             p['shipped'] = p['outs'] = None
@@ -1622,13 +1628,15 @@ class BatchScanner:
         flush = max(1, self.REPORT_FLUSH_ROWS)
         host_idx = [p_idx for p_idx in self._host_policy_idx
                     if self._policy_header[p_idx][0].background]
+        from ..observability import device as devtel
         done = 0
         try:
             while done < n:
-                try:
-                    start, status, detail, fdet, _adm, cm = next(chunks)
-                except StopIteration:
+                with devtel.stage('wait'):
+                    item = next(chunks, None)
+                if item is None:
                     return
+                start, status, detail, fdet, _adm, cm = item
                 m = status.shape[0]
                 host_maybe = None
                 part_docs = resources[start:start + m]
@@ -1636,7 +1644,6 @@ class BatchScanner:
                     part_wrapped = [Resource(r) for r in part_docs]
                     host_maybe = self._host_policy_maybe(part_docs,
                                                          part_wrapped)
-                from ..observability import device as devtel
                 for w0 in range(0, m, flush):
                     w1 = min(w0 + flush, m)
                     wm = w1 - w0
@@ -1698,7 +1705,6 @@ class BatchScanner:
         finally:
             if tally is not None:
                 tally.finish()
-                from ..observability import device as devtel
                 cap = devtel.current_capture()
                 if cap is not None:
                     cap.coverage_ratio = tally.ratio()

@@ -49,8 +49,22 @@ METRICS: Dict[str, Metric] = {
         'counter', 'Cluster client queries by verb/kind.'),
     # device-pipeline instruments (observability/device.py)
     'kyverno_tpu_scan_stage_duration_seconds': Metric(
-        'histogram', 'Batched-scan stage latency; stage=pack|encode|h2d|'
-        'compile|device_eval|d2h|report.'),
+        'histogram', 'Batched-scan stage latency; stage=pack|encode|'
+        'match|h2d|device_eval|d2h|report, wait (the report loop '
+        'waiting for the next chunk), gc (a garbage-collector pause), '
+        'and device: a K1 call\'s time on its CUDA stream from events '
+        'recorded around evaluate_packed, read after the readback, '
+        'which includes any gap while the host enqueues K1v and K1h.'),
+    'kyverno_tpu_scan_stage_cpu_seconds_total': Metric(
+        'counter', 'Thread CPU seconds of each scan stage '
+        '(time.thread_time; a forked encode worker\'s process time), '
+        'beside its wall seconds on the stage histogram: wall minus CPU '
+        'is time spent waiting for the interpreter lock, the garbage '
+        'collector or I/O.'),
+    'kyverno_tpu_gc_pause_seconds_total': Metric(
+        'counter', 'Garbage-collector pauses while device telemetry is '
+        'on, by generation=0|1|2; every thread of the process waits '
+        'while one runs.'),
     'kyverno_tpu_compile_cache_requests_total': Metric(
         'counter', 'Evaluator executable lookups; result=hit|miss|'
         'aot_load|aot_store.'),
@@ -270,11 +284,19 @@ SPANS: Dict[str, str] = {
     'kyverno/device/pack': 'Pack-plan build stage.',
     'kyverno/device/encode': 'Host feature-extraction (encode) stage.',
     'kyverno/device/h2d': 'Host-to-device transfer stage.',
-    'kyverno/device/compile': 'Executable lookup / XLA compile stage.',
     'kyverno/device/device_eval': 'Device evaluation dispatch stage.',
     'kyverno/device/d2h': 'Device-to-host readback stage (stall-'
                           'watchdog armed).',
     'kyverno/device/report': 'Response/report assembly stage.',
+    'kyverno/device/match': 'Per-chunk match mask (match_matrix) in the '
+                            'pipeline\'s encode thread, before the '
+                            'chunk is encoded.',
+    'kyverno/device/wait': 'The report loop waiting for the pipeline\'s '
+                           'next chunk (a leaf span: the stages it '
+                           'drives parent under the scan\'s span).',
+    'kyverno/device/gc': 'One garbage-collector pause while device '
+                         'telemetry is on, on the thread that started '
+                         'it (a leaf span; every thread waits).',
     'kyverno/mutate/patch_emit': 'Device mutate patch-emit stage: '
                                  'edit-site lane encode + kernel '
                                  'dispatch for one batch.',
@@ -309,8 +331,13 @@ PIPELINE_STAGES: Dict[str, str] = {
     'encode': 'Host feature extraction (columnar lane encode, inline '
               'or forked worker).',
     'h2d': 'Host-to-device transfer (and forked-encode resolution).',
-    'compile': 'Executable lookup / XLA compile.',
     'device_eval': 'Device evaluation dispatch.',
     'd2h': 'Device-to-host readback (stall-watchdog armed).',
     'report': 'Report-row assembly / flush window.',
+    'match': 'Per-chunk match mask in the encode stage\'s thread '
+             '(streaming report scans).',
+    'wait': 'The report loop waiting for the next chunk (not pipeline '
+            'work: drives the stages, never one of them).',
+    'gc': 'A garbage-collector pause, in every live scan (not pipeline '
+          'work).',
 }

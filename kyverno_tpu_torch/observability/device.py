@@ -1,12 +1,18 @@
-"""Device-pipeline telemetry: stage spans, TPU metrics, d2h watchdog.
+"""Device-pipeline telemetry: stage spans, device metrics, d2h watchdog.
 
 The batched scan path (``compiler/scan.py`` + ``ops/eval.py``) runs as
-a pipeline — pack-plan build, host feature extraction (encode), h2d
-transfer, XLA trace/compile, device eval dispatch, d2h readback, report
+a pipeline — pack-plan build, host feature extraction (encode) and the
+match, h2d transfer, device eval dispatch, d2h readback, report
 assembly.  This module gives each stage an OTel-shaped child span (via
-``observability.tracing``) and a matching Prometheus series
-(``kyverno_tpu_scan_stage_duration_seconds{stage=...}``), plus cache
-hit/miss counters and a **d2h stall watchdog**: a monitor thread that
+``observability.tracing``), a matching Prometheus series
+(``kyverno_tpu_scan_stage_duration_seconds{stage=...}``) with the
+stage's thread CPU seconds beside it, and, while a profiler records, a
+``torch.profiler`` range of the span's name, so a CPU+CUDA profile of
+the process shows each thread's stages next to the kernels they
+caused.  Beside the stages it times the report loop's wait for the next
+chunk, every garbage-collector pause, and the K1 call's device time
+from CUDA events (``DeviceTimer``), plus cache hit/miss counters and a
+**d2h stall watchdog**: a monitor thread that
 fires a structured event, an ERROR log line, and a
 ``kyverno_tpu_d2h_stalls_total`` increment whenever a device→host
 readback blocks longer than ``KTPU_D2H_STALL_S`` (default 30s) — the
@@ -15,14 +21,17 @@ trace instead of silently starving the pipeline.
 
 Everything here is a no-op until :func:`configure` runs (and spans
 additionally require ``tracing.configure``): unconfigured processes
-allocate no spans, create no series, and start no threads, so tier-1
-timings and bit-identical PolicyReport output are unaffected.
+allocate no spans, create no series, start no threads, read no CPU
+clock, create no CUDA event and hook nothing into the garbage
+collector, so tier-1 timings and bit-identical PolicyReport output are
+unaffected.
 """
 
 from __future__ import annotations
 
 import collections
 import contextvars
+import gc
 import logging
 import os
 import threading
@@ -33,6 +42,8 @@ from . import tracing
 from .metrics import (WIDE_BUCKETS, MetricsRegistry, global_registry)
 
 SCAN_STAGE_DURATION = 'kyverno_tpu_scan_stage_duration_seconds'
+SCAN_STAGE_CPU = 'kyverno_tpu_scan_stage_cpu_seconds_total'
+GC_PAUSE = 'kyverno_tpu_gc_pause_seconds_total'
 COMPILE_CACHE_REQUESTS = 'kyverno_tpu_compile_cache_requests_total'
 DEVICE_BATCH_SIZE = 'kyverno_tpu_device_batch_size'
 D2H_BYTES = 'kyverno_tpu_d2h_bytes_total'
@@ -40,9 +51,21 @@ D2H_STALLS = 'kyverno_tpu_d2h_stalls_total'
 PIPELINE_INFLIGHT = 'kyverno_tpu_scan_pipeline_inflight_chunks'
 BACKPRESSURE = 'kyverno_tpu_scan_backpressure_seconds_total'
 
-#: canonical stage labels, in pipeline order
-STAGES = ('pack', 'encode', 'h2d', 'compile', 'device_eval', 'd2h',
+#: the pipeline's work stages, in pipeline order (the report loop's
+#: ``wait``, collector pauses ``gc`` and the device time ``device`` are
+#: recorded beside them, and are not host work of the pipeline)
+STAGES = ('pack', 'encode', 'match', 'h2d', 'device_eval', 'd2h',
           'report')
+
+#: stages whose span never parents another: the report loop's wait,
+#: which drives the pipeline's generator (a generator captures the
+#: ambient span as the parent of its stages when it first runs), and a
+#: collector pause, which interrupts whatever its thread ran
+_LEAF_STAGES = frozenset(('wait', 'gc'))
+#: stages whose thread CPU seconds are not read: a collector pause is
+#: all CPU of its thread, and at some 1,400 pauses a scan chunk the two
+#: clock reads (a system call each) would be most of what it costs
+_NO_CPU_STAGES = frozenset(('gc',))
 
 _log = logging.getLogger('kyverno.device')
 
@@ -86,6 +109,7 @@ def configure(registry: Optional[MetricsRegistry] = None,
     global _registry, _watchdog, _event_sink
     reg = registry or global_registry() or MetricsRegistry()
     reg.register_histogram(SCAN_STAGE_DURATION, WIDE_BUCKETS)
+    _hook_gc()
     # in-flight chunks is a residency gauge: once the pipeline drains
     # it must export 0 (swept by cmd/internal.Setup.shutdown)
     reg.mark_reset_on_close(PIPELINE_INFLIGHT)
@@ -106,6 +130,8 @@ def disable() -> None:
     _event_sink = None
     if wd is not None:
         wd.stop()
+    _unhook_gc()
+    _drain()
 
 
 def registry() -> Optional[MetricsRegistry]:
@@ -120,6 +146,13 @@ def enabled() -> bool:
     """True when any instrumentation would record (metrics configured
     or tracing on) — the zero-overhead gate for the scan hot path."""
     return _registry is not None or tracing.tracer().enabled
+
+
+def active() -> bool:
+    """True when a stage timed on this thread would record: metrics
+    configured, tracing on, or a ScanCapture installed here."""
+    return _registry is not None or _capture_var.get() is not None \
+        or tracing.tracer().enabled
 
 
 # -- per-scan capture -------------------------------------------------------
@@ -137,7 +170,15 @@ class ScanCapture:
     drives the amortized per-rider device-time share), the AOT
     executable-cache outcome, and the scan's device-coverage ratio —
     without attributing concurrent scans' stages to each other the way
-    a registry-sum delta would."""
+    a registry-sum delta would.
+
+    ``stages`` maps a name to seconds: each stage's wall seconds under
+    its name and its thread CPU seconds under ``<stage>.cpu``, the
+    report loop's ``wait``, collector pauses ``gc``, and ``device``,
+    the K1 calls' time on the card.  It is copied on write: a writer
+    replaces the dict and never changes one it published, so a reader's
+    ``dict(capture.stages)`` cannot race a pipeline thread that adds a
+    new key."""
 
     __slots__ = ('stages', 'aot', 'coverage_ratio', 'critical_path',
                  '_lock')
@@ -151,13 +192,73 @@ class ScanCapture:
         self.critical_path: Optional[Dict[str, Any]] = None
         self._lock = threading.Lock()
 
-    def add(self, stage: str, seconds: float) -> None:
-        with self._lock:
-            self.stages[stage] = self.stages.get(stage, 0.0) + seconds
+    def add(self, stage: str, seconds: float,
+            cpu: Optional[float] = None) -> None:
+        """Add ``seconds`` to ``stage`` (and ``cpu`` to ``<stage>.cpu``).
+        The copy is made outside the lock: a collector pause can start
+        at any allocation and add to this capture from the same thread,
+        so the lock guards only the swap, which allocates nothing, and a
+        writer whose copy went stale copies again."""
+        while True:
+            old = self.stages
+            new = dict(old)
+            new[stage] = new.get(stage, 0.0) + seconds
+            if cpu is not None:
+                key = stage + '.cpu'
+                new[key] = new.get(key, 0.0) + cpu
+            with self._lock:
+                if self.stages is old:
+                    self.stages = new
+                    return
 
     def stage_s(self, stage: str) -> float:
-        with self._lock:
-            return self.stages.get(stage, 0.0)
+        return self.stages.get(stage, 0.0)
+
+
+#: every ScanCapture installed on some thread of this process:
+#: {id: [capture, installs]}.  A collector pause stops every thread, so
+#: it lands once in each of them, whichever thread it started on.
+_live: Dict[int, list] = {}
+_live_lock = threading.Lock()
+
+
+def _hold(capture: ScanCapture) -> None:
+    entry = [capture, 1]  # allocated outside the lock (see ScanCapture.add)
+    with _live_lock:
+        held = _live.get(id(capture))
+        if held is None:
+            _live[id(capture)] = entry
+        else:
+            held[1] += 1
+    if not _gc_hooked:
+        _hook_gc()
+
+
+def _release(capture: ScanCapture) -> None:
+    with _live_lock:
+        held = _live.get(id(capture))
+        if held is not None:
+            held[1] -= 1
+            if not held[1]:
+                del _live[id(capture)]
+        idle = not _live
+    if idle:
+        _unhook_gc()
+
+
+class _LiveCaptures:
+    """The capture of a collector pause: every capture live in the
+    process, each once."""
+
+    __slots__ = ()
+
+    def add(self, stage: str, seconds: float,
+            cpu: Optional[float] = None) -> None:
+        for capture, _installs in list(_live.values()):
+            capture.add(stage, seconds, cpu)
+
+
+_LIVE = _LiveCaptures()
 
 
 class _CaptureScope:
@@ -170,11 +271,13 @@ class _CaptureScope:
     def __enter__(self) -> Optional[ScanCapture]:
         if self.capture is not None:
             self._token = _capture_var.set(self.capture)
+            _hold(self.capture)
         return self.capture
 
     def __exit__(self, *exc) -> None:
         if self._token is not None:
             _capture_var.reset(self._token)
+            _release(self.capture)
 
 
 def install_capture(capture: Optional[ScanCapture]) -> _CaptureScope:
@@ -195,15 +298,67 @@ def merge_worker_stages(stages: Dict[str, float]) -> None:
     ScanCapture.  Worker processes inherit telemetry globals at fork
     but their metric increments and contextvars die with them — the
     measured times ride home with the encoded tensors and are
-    re-attributed here, on the pipeline thread that resolved them."""
+    re-attributed here, on the pipeline thread that resolved them.  A
+    ``<stage>.cpu`` entry (the worker's process CPU seconds) goes to the
+    stage CPU counter."""
     if not stages:
         return
     capture = _capture_var.get()
     for name, seconds in stages.items():
         if _registry is not None:
-            _registry.observe(SCAN_STAGE_DURATION, seconds, stage=name)
+            if name.endswith('.cpu'):
+                _registry.inc(SCAN_STAGE_CPU, seconds, stage=name[:-4])
+            else:
+                _registry.observe(SCAN_STAGE_DURATION, seconds, stage=name)
         if capture is not None:
             capture.add(name, seconds)
+
+
+class DeviceTimer:
+    """A CUDA timing-event pair around one call on its device's current
+    stream (:func:`device_timer`); :meth:`stop` records the end after
+    the call is enqueued, and :meth:`seconds` is read once a readback
+    has waited for the stream."""
+
+    __slots__ = ('start', 'end', 'stream')
+
+    def __init__(self, device):
+        import torch
+        self.stream = torch.cuda.current_stream(device)
+        self.start = torch.cuda.Event(enable_timing=True)
+        self.end = torch.cuda.Event(enable_timing=True)
+        self.start.record(self.stream)
+
+    def stop(self) -> None:
+        self.end.record(self.stream)
+
+    def seconds(self) -> float:
+        return self.start.elapsed_time(self.end) / 1e3
+
+
+def device_timer(tensor) -> Optional[DeviceTimer]:
+    """A started :class:`DeviceTimer` on ``tensor``'s device when a stage
+    timed here would record and the tensor lives on a CUDA device; else
+    None, and no event is created."""
+    if not tensor.is_cuda or not active():
+        return None
+    return DeviceTimer(tensor.device)
+
+
+def merge_device_time(timer: Optional[DeviceTimer]) -> None:
+    """Fold a call's device seconds into the stage histogram
+    (``stage=device``) and the ambient ScanCapture, after a readback
+    that waited for the call's stream — no synchronize of its own.  No
+    timer (telemetry off, or a call off the card) records nothing: the
+    program never writes a device time it did not measure."""
+    if timer is None:
+        return
+    seconds = timer.seconds()
+    if _registry is not None:
+        _registry.observe(SCAN_STAGE_DURATION, seconds, stage='device')
+    capture = _capture_var.get()
+    if capture is not None:
+        capture.add('device', seconds)
 
 
 # -- stage timers -----------------------------------------------------------
@@ -227,14 +382,72 @@ class _NoopStage:
 _NOOP_STAGE = _NoopStage()
 
 
-class _Stage:
-    __slots__ = ('stage', 'span', '_t0', '_capture')
+#: the profiler's "is a profile recording" flag, one read (resolved at
+#: the first active stage, so importing this module imports no torch)
+_profiler_enabled: Optional[Callable[[], bool]] = None
 
-    def __init__(self, stage: str, span, t0: float, capture=None):
+
+def _profiling() -> bool:
+    global _profiler_enabled
+    if _profiler_enabled is None:
+        import torch
+        _profiler_enabled = torch.autograd._profiler_enabled
+    return _profiler_enabled()
+
+
+#: True while the collector hook runs: registry writes and span exports
+#: wait in ``_deferred`` for the next stage that ends outside it, since
+#: the collection may have started inside one of their locks on the same
+#: thread (a capture's swap allocates nothing, so captures add at once)
+_collecting = False
+_deferred: 'collections.deque' = collections.deque()
+
+
+def _drain() -> None:
+    while _deferred:
+        try:
+            fn, args = _deferred.popleft()
+        except IndexError:
+            return
+        fn(*args)
+
+
+def _later(fn, *args) -> None:
+    if _collecting:
+        _deferred.append((fn, args))
+        return
+    _drain()
+    fn(*args)
+
+
+def _observe(stage_name: str, seconds: float,
+             cpu: Optional[float]) -> None:
+    reg = _registry
+    if reg is not None:
+        reg.observe(SCAN_STAGE_DURATION, seconds, stage=stage_name)
+        if cpu is not None:
+            reg.inc(SCAN_STAGE_CPU, cpu, stage=stage_name)
+
+
+class _Stage:
+    """One recording stage.  Its wall seconds are its span's interval on
+    the span's clock (``time.time_ns``, the clock a profiler's trace is
+    exported on), the same seconds go to the histogram and the capture,
+    its thread CPU seconds (``time.thread_time``) go beside them unless
+    it is one of ``_NO_CPU_STAGES``, and while a profiler records, a
+    range of the span's name covers it."""
+
+    __slots__ = ('stage', 'span', 'seconds', '_capture', '_leaf', '_cpu',
+                 '_range', '_t0', '_c0')
+
+    def __init__(self, stage: str, span, capture=None):
         self.stage = stage
         self.span = span
-        self._t0 = t0
+        self.seconds = 0.0
         self._capture = capture
+        self._leaf = stage in _LEAF_STAGES
+        self._cpu = stage not in _NO_CPU_STAGES
+        self._range = None
 
     def set_attribute(self, key, value):
         self.span.set_attribute(key, value)
@@ -243,17 +456,47 @@ class _Stage:
         add_d2h_bytes(n)
 
     def __enter__(self):
-        self.span.__enter__()
+        span = self.span
+        if not self._leaf:
+            span.__enter__()
+        self._c0 = time.thread_time() if self._cpu else 0.0
+        self._t0 = time.time_ns()
+        if isinstance(span, tracing.Span):
+            span.start_ns = self._t0
+        if _profiling():
+            import torch
+            # a range that keeps the interpreter lock: record_function's
+            # op call releases it, and with the pipeline's threads
+            # waiting each range then costs a switch interval, not µs
+            self._range = torch._C._profiler._RecordFunctionFast(
+                f'kyverno/device/{self.stage}')
+            self._range.__enter__()
         return self
 
     def __exit__(self, exc_type, exc, tb):
-        self.span.__exit__(exc_type, exc, tb)
-        elapsed = time.monotonic() - self._t0
-        if _registry is not None:
-            _registry.observe(SCAN_STAGE_DURATION, elapsed,
-                              stage=self.stage)
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+            self._range = None
+        cpu = time.thread_time() - self._c0 if self._cpu else None
+        span = self.span
+        real = isinstance(span, tracing.Span)
+        if not self._leaf:
+            span.__exit__(exc_type, exc, tb)
+            t1 = span.end_ns if real else time.time_ns()
+        else:
+            t1 = time.time_ns()
+            if real:
+                if exc is not None:
+                    span.record_exception(exc)
+                span.end_ns = t1
+                # the tracer's export, as Span.end does it, at the
+                # reading above
+                _later(span._tracer._export, span)
+        self.seconds = (t1 - self._t0) / 1e9
         if self._capture is not None:
-            self._capture.add(self.stage, elapsed)
+            self._capture.add(self.stage, self.seconds, cpu)
+        if _registry is not None:
+            _later(_observe, self.stage, self.seconds, cpu)
         return False
 
 
@@ -261,16 +504,103 @@ def stage(name: str, attributes: Optional[Dict[str, Any]] = None,
           parent=None):
     """Context manager timing one pipeline stage: a
     ``kyverno/device/<name>`` span (child of ``parent`` or the context
-    span) plus a stage-labelled histogram sample (and a line in the
-    active provenance ScanCapture, when one is installed).  Returns a
-    shared no-op when telemetry is unconfigured."""
+    span), a stage-labelled histogram sample and CPU counter, a line in
+    the active provenance ScanCapture, when one is installed, and a
+    profiler range while a profiler records.  Returns a shared no-op
+    when telemetry is unconfigured."""
     capture = _capture_var.get()
     if _registry is None and capture is None and \
             not tracing.tracer().enabled:
         return _NOOP_STAGE
+    if not _gc_hooked:
+        _hook_gc()
     span = tracing.tracer().start_span(f'kyverno/device/{name}',
                                        attributes, parent=parent)
-    return _Stage(name, span, time.monotonic(), capture)
+    return _Stage(name, span, capture)
+
+
+# -- garbage-collector pauses -----------------------------------------------
+
+_gc_hooked = False
+_hook_lock = threading.Lock()
+#: [(stage context manager, its _Stage)] of the collection in progress
+_gc_open: List[tuple] = []
+
+
+def _on_gc(phase: str, info: Dict[str, int]) -> None:
+    """``gc.callbacks`` hook: each collection is one ``stage('gc')``,
+    opened on the thread that triggered it, whose capture is every live
+    one (``_LIVE``), plus the pause counter by generation."""
+    global _collecting
+    if phase == 'start':
+        if _registry is None and not _live and \
+                not tracing.tracer().enabled:
+            return
+        _collecting = True
+        try:
+            token = _capture_var.set(_LIVE if _live else None)
+            try:
+                st = stage('gc', {'generation': info['generation']})
+            finally:
+                _capture_var.reset(token)
+            _gc_open.append((st, st.__enter__()))
+        finally:
+            _collecting = False
+    elif _gc_open:
+        _collecting = True
+        try:
+            st, inner = _gc_open.pop()
+            st.__exit__(None, None, None)
+            if _registry is not None and isinstance(inner, _Stage):
+                _later(_count_gc, inner.seconds, info['generation'])
+        finally:
+            _collecting = False
+
+
+def _count_gc(seconds: float, generation: int) -> None:
+    reg = _registry
+    if reg is not None:
+        reg.inc(GC_PAUSE, seconds, generation=str(generation))
+
+
+def _hook_gc() -> None:
+    global _gc_hooked
+    with _hook_lock:
+        if not _gc_hooked:
+            gc.callbacks.append(_on_gc)
+            _gc_hooked = True
+
+
+def _unhook_gc() -> None:
+    """Take the hook out once nothing records: no registry, no live
+    capture, tracing off."""
+    global _gc_hooked
+    with _hook_lock:
+        if _gc_hooked and _registry is None and not _live and \
+                not tracing.tracer().enabled:
+            try:
+                gc.callbacks.remove(_on_gc)
+            except ValueError:
+                pass
+            _gc_hooked = False
+            _gc_open.clear()
+
+
+def _after_fork_in_child() -> None:
+    """A forked child (an encode worker) inherits the hook and the
+    parent's captures; its pauses stop none of the parent's threads."""
+    global _gc_hooked, _live_lock, _hook_lock
+    _live_lock = threading.Lock()
+    _hook_lock = threading.Lock()
+    _live.clear()
+    _gc_open.clear()
+    _deferred.clear()
+    if _on_gc in gc.callbacks:
+        gc.callbacks.remove(_on_gc)
+    _gc_hooked = False
+
+
+os.register_at_fork(after_in_child=_after_fork_in_child)
 
 
 # -- counters / gauges ------------------------------------------------------
@@ -453,6 +783,7 @@ def stage_breakdown() -> Dict[str, Dict[str, float]]:
     the ``stage_breakdown`` block bench.py embeds in its JSON line."""
     if _registry is None:
         return {}
+    _drain()
     out: Dict[str, Dict[str, float]] = {}
     for key, count, total in _registry.histogram_series(
             SCAN_STAGE_DURATION):

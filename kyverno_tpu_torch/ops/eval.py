@@ -70,6 +70,17 @@ def _const_bytes(s: str) -> bytes:
     return s.encode('utf-8')
 
 
+_NO_RANGE = contextlib.nullcontext()
+
+
+def _profiled(name: str):
+    """A profiler range ``name`` while a profile records, else nothing:
+    a range costs about 14 µs a call, and only a profile reads it."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_RANGE
+
+
 #: the calling evaluator's device-resident constants (pattern bytes, id
 #: sets, aranges), kept once per (value, dtype, device) for the
 #: evaluator's lifetime: a fresh ``torch.tensor`` per op would pay a
@@ -1874,8 +1885,7 @@ def build_evaluator(cps: CompiledPolicySet, device=None):
                             place(out, vm_trees, walk_trees(t, vm_trees))
                     if plan.program.n_adm:
                         lanes = plan.lanes(packed, ADM_LANES)
-                        with torch.profiler.record_function(
-                                'k1i_adm_match'), _consts():
+                        with _profiled('k1i_adm_match'), _consts():
                             adm = _adm_match_graph(
                                 adm_table, lanes).to(torch.int8)
                     else:
@@ -1993,7 +2003,7 @@ def build_evaluator(cps: CompiledPolicySet, device=None):
         rows, dev = ref.shape[0], ref.device
         program = plan.program
         if program is not None:
-            with torch.profiler.record_function('k1v_status_vm'):
+            with _profiled('k1v_status_vm'):
                 try:
                     out = kernels.status_vm(packed, program)
                 except Exception:
@@ -2005,7 +2015,7 @@ def build_evaluator(cps: CompiledPolicySet, device=None):
                 torch.empty((rows, 0), dtype=torch.int8, device=dev),)
         if eager_trees:
             t = plan.status_lanes(packed)
-            with torch.profiler.record_function('k1_eager_walk'), _walk():
+            with _profiled('k1_eager_walk'), _walk():
                 place(out[:3], eager_trees, walk_trees(t, eager_trees))
         return out
 
@@ -2060,7 +2070,7 @@ def build_evaluator(cps: CompiledPolicySet, device=None):
         # degrade to exact host materialization, never wrong answers.
         s_u, d_u, fdet_u, adm = evaluate_unique(packed, plan)
         k = min(fdet_k, n_cols_u)
-        with torch.profiler.record_function('k1h_fdet_select'):
+        with _profiled('k1h_fdet_select'):
             g, col = plan.match_at
             rv = plan.rowvalid_at
             rows = kernels.fdet_select(
@@ -2076,14 +2086,23 @@ def build_evaluator(cps: CompiledPolicySet, device=None):
         with devtel.stage('device_eval') as st:
             _stamp_coverage(st)
             plan = plan_for(layout, packed)
-            if not exectel.enabled():
-                return evaluate_packed(packed, layout, plan)
+            # the call's time on the card, read by the readback's
+            # caller (devtel.merge_device_time) once it has waited
+            timer = devtel.device_timer(next(iter(packed.values())))
             # the host time of the dispatch: the call returns before
             # the card finishes, and the ledger adds no sync
-            t0 = time.monotonic()
+            ledger = exectel.enabled()
+            t0 = time.monotonic() if ledger else 0.0
             out = evaluate_packed(packed, layout, plan)
-            exectel.record_dispatch(plan.ledger_key,
-                                    time.monotonic() - t0)
+            if ledger:
+                exectel.record_dispatch(plan.ledger_key,
+                                        time.monotonic() - t0)
+            if timer is None:
+                return out
+            timer.stop()
+            if not isinstance(out, CompactOut):
+                out = _TimedTuple(out)
+            out.timer = timer
             return out
 
     call.raw = evaluate
@@ -2151,10 +2170,13 @@ class CompactOut:
     The views are made when read, so the scan, which copies ``rows``
     back once (``host``), dispatches no op for them."""
 
-    __slots__ = ('rows', 'n8', 'k')
+    __slots__ = ('rows', 'n8', 'k', 'timer')
 
     def __init__(self, rows: torch.Tensor, n8: int, k: int):
         self.rows, self.n8, self.k = rows, n8, k
+        #: the call's ``devtel.DeviceTimer`` (None when telemetry is off
+        #: or the call ran off the card)
+        self.timer = None
 
     def __len__(self) -> int:
         return 2
@@ -2170,6 +2192,13 @@ class CompactOut:
         the card it waits for the call's device work)."""
         # ktpu: noqa[KTPU101] -- the K1 call's one readback
         return kernels.fdet_views(self.rows.cpu().numpy(), self.n8, self.k)
+
+
+class _TimedTuple(tuple):
+    """The program-space ``(status, detail, fdet)`` of a K1 call (the
+    mesh path's) with the call's ``devtel.DeviceTimer``."""
+
+    timer = None
 
 
 def expand_compact(out8: np.ndarray, out32: np.ndarray, evaluator):

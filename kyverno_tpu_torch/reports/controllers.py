@@ -474,10 +474,13 @@ class BackgroundScanController:
                                      [self._policy_index[id(p)]
                                       for p in row_policies])
                 # per-stage busy time ÷ tick wall: >1 means the
-                # pipeline legs genuinely overlapped this tick
+                # pipeline legs genuinely overlapped this tick (the
+                # pipeline's work stages only: not the report loop's
+                # wait, collector pauses, device time or CPU seconds)
                 scan_wall = time.monotonic() - t_scan
                 if scan_wall > 0:
-                    busy = sum(cap.stages.values())
+                    stages = cap.stages
+                    busy = sum(stages.get(s, 0.0) for s in devtel.STAGES)
                     span.set_attribute('overlap_ratio',
                                        round(busy / scan_wall, 4))
                 if cap.critical_path:

@@ -21,6 +21,7 @@ REF = os.path.join(ROOT, 'kyverno_tpu')
 
 #: modules of the port whose device seams differ from the JAX package's
 PORTED = {'__init__.py', 'ops/eval.py', 'compiler/scan.py',
+          'observability/device.py', 'observability/catalog.py',
           'mutate/kernel.py', 'mutate/scanner.py', 'partition/keys.py',
           'partition/runtime.py', 'verdictcache/keys.py',
           'webhooks/handlers.py', 'parallel/mesh.py',

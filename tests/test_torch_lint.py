@@ -298,12 +298,17 @@ KEPT = sorted(n for n in dir(reference)
 def test_reference_fixture_holds_on_the_port(name, tmp_path, monkeypatch):
     """The reference's positive/negative fixture ``name`` run through
     the port's analyzer (its rule registry, knob registry, metric
-    catalog and coverage taxonomy in place of the reference's)."""
+    catalog, coverage taxonomy and pipeline stage registry in place of
+    the reference's)."""
+    from kyverno_tpu.analysis import catalog_pass as ref_catalog_pass
+    from kyverno_tpu_torch.analysis import catalog_pass
     for attr, value in (('Analyzer', Analyzer), ('RULES', RULES),
                         ('write_baseline', write_baseline),
                         ('KNOBS', KNOBS), ('METRICS', METRICS),
                         ('REASONS', REASONS)):
         monkeypatch.setattr(reference, attr, value)
+    monkeypatch.setattr(ref_catalog_pass, 'load_stage_registry',
+                        catalog_pass.load_stage_registry)
     getattr(reference, name)(tmp_path)
 
 
