@@ -21,7 +21,7 @@ pair (reference match semantics: pkg/engine/utils.go:185).
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -29,9 +29,13 @@ from ..api.policy import Policy, Rule
 from ..api.unstructured import Resource
 from ..engine.api import (EngineResponse, PolicyContext, RuleResponse,
                           RuleStatus, RuleType)
-from ..engine.engine import Engine
+from ..engine.engine import ContextLoader, Engine
 from ..engine.match import matches_resource_description
 from ..observability import coverage
+from ..pss.checks import DEFAULT_CHECKS, LEVEL_BASELINE, LEVEL_RESTRICTED
+from ..pss.evaluate import (evaluate_pod_security, evaluate_pss,
+                            extract_pod_spec, format_checks_print,
+                            parse_version)
 from .. import faults
 from . import admission as admission_lanes
 from .compile import compile_policies
@@ -64,6 +68,108 @@ _HOST_MARKER = object()
 #: ``id()`` can be reused after GC/eviction, which would let a fresh
 #: scanner's tickets coalesce with a dead scanner's batch
 _SCANNER_SERIALS = __import__('itertools').count(1)
+
+
+_BASELINE_CHECK_IDS = frozenset(
+    c.id for c in DEFAULT_CHECKS if c.level == LEVEL_BASELINE)
+
+
+class _PssSpec(NamedTuple):
+    """What a podSecurity program's host row needs besides the checks:
+    the rule name, the level and version as the rule states them (the
+    engine prints them raw), and whether every check runs (any level
+    but baseline, as ``evaluate_pss`` reads it)."""
+    name: str
+    level: Any
+    version: Any
+    full: bool
+
+
+def _pss_spec(prog: RuleProgram) -> Optional[_PssSpec]:
+    """The spec of a program whose host row the check library can build
+    exactly as ``Validator._validate_pod_security`` does, or None: a
+    rule with a context, preconditions, podSecurity excludes, another
+    validate sub-key or a version the engine rejects keeps the engine."""
+    if prog.pss is None:
+        return None
+    rule = Rule(prog.rule_raw or {})
+    v = rule.validation
+    ps = v.get('podSecurity')
+    if rule.context or rule.preconditions is not None or \
+            not isinstance(ps, dict) or ps.get('exclude') or \
+            any(v.get(k) is not None
+                for k in ('deny', 'pattern', 'anyPattern')):
+        return None
+    try:
+        level, _version = parse_version(ps)
+    except ValueError:
+        return None
+    return _PssSpec(rule.name, ps.get('level', ''), ps.get('version', ''),
+                    level != LEVEL_BASELINE)
+
+
+class _PssRows:
+    """One assembly window's podSecurity rows, built from the check
+    library instead of a host-engine run per cell.  A Pod's checks run
+    once, at the highest level any podSecurity program of the window
+    reaches it with (``full_rows``), and a baseline program reuses a
+    full evaluation filtered to the baseline checks: ``evaluate_pss`` at
+    baseline is the same ``DEFAULT_CHECKS`` walk with the other levels'
+    checks skipped, so the rows are the engine's (reference:
+    pkg/engine/validation.go:535 validatePodSecurity).  ``evaluated``
+    and ``shared`` count the rows that ran the checks and the rows
+    served from another program's evaluation of the same Pod."""
+
+    __slots__ = ('specs', 'full_rows', 'found', 'evaluated', 'shared')
+
+    def __init__(self, specs: Dict[int, _PssSpec], full_rows: np.ndarray):
+        self.specs = specs
+        self.full_rows = full_rows
+        self.found: Dict[int, Tuple[bool, List[dict]]] = {}
+        self.evaluated = 0
+        self.shared = 0
+
+    def response(self, j: int, k: int,
+                 resource: dict) -> Optional[RuleResponse]:
+        """Row ``k``'s response to program ``j``, or None for the engine
+        path: not a direct program, a DELETE-shaped empty resource, or
+        any exception in the spec extraction or the checks."""
+        spec = self.specs.get(j)
+        if spec is None or not resource:
+            return None
+        hit = self.found.get(k)
+        if hit is None or (spec.full and not hit[0]):
+            full = spec.full or bool(self.full_rows[k])
+            try:
+                checks = evaluate_pss(
+                    LEVEL_RESTRICTED if full else LEVEL_BASELINE,
+                    extract_pod_spec(resource))
+            except Exception:  # noqa: BLE001 - the engine's own row
+                return None
+            hit = self.found[k] = (full, checks)
+            self.evaluated += 1
+        else:
+            self.shared += 1
+        full, checks = hit
+        if full and not spec.full:
+            checks = [c for c in checks if c['id'] in _BASELINE_CHECK_IDS]
+        else:
+            checks = list(checks)
+        name = spec.name
+        if checks:
+            rr = RuleResponse(
+                name, RuleType.VALIDATION,
+                f"Validation rule '{name}' failed. It violates "
+                f'PodSecurity "{spec.level}:{spec.version}": '
+                f'{format_checks_print(checks)}', RuleStatus.FAIL)
+        else:
+            rr = RuleResponse(name, RuleType.VALIDATION,
+                              f"Validation rule '{name}' passed.",
+                              RuleStatus.PASS)
+        rr.pod_security_checks = {'level': spec.level,
+                                  'version': spec.version,
+                                  'checks': checks}
+        return rr
 
 
 def next_scanner_serial() -> int:
@@ -320,6 +426,11 @@ class BatchScanner:
         self._match_cache_lock = __import__('threading').Lock()
         self._rules = [Rule(p.rule_raw or {}) for p in self.cps.programs]
         self._fail_msg_cache: Dict[Tuple, Optional[str]] = {}
+        # device programs whose host rows the check library builds
+        # (_PssRows); every other host row re-runs the engine
+        self._pss_specs: Dict[int, _PssSpec] = {
+            j: spec for j, prog in self.device_programs
+            if (spec := _pss_spec(prog)) is not None}
         # forked encode workers only pay off with spare cores: on a
         # single-CPU host the ~150MB/chunk lane tensors pickled back
         # through the pipe cost more CPU than the encode they offload
@@ -1269,6 +1380,8 @@ class BatchScanner:
         # per-row [(policy_index, RuleResponse|None), ...] in j order
         acc: List[list] = [[] for _ in range(m)]
         fly: Dict[Tuple, Any] = {}
+        pss = self._pss_rows(sub_match, status,
+                             background_ok if background_mode else None)
         if m <= self.SMALL_BATCH:
             for k in range(m):
                 row_js = np.flatnonzero(sub_match[k] & self._dev_mask)
@@ -1283,8 +1396,8 @@ class BatchScanner:
                                     int(det_row[j]), fdet[k], ts, fly,
                                     resources[start + k], tally)
                     if rr is _HOST:
-                        rr = self._materialize(prog,
-                                               resources[start + k])
+                        rr = self._materialize_row(
+                            j, prog, resources[start + k], k, pss)
                         if rr is not None:
                             rr.timestamp = ts
                     acc[k].append((prog.policy_index,
@@ -1310,12 +1423,13 @@ class BatchScanner:
                     if rr is _HOST:
                         # anchor-SKIP / HOST / unsynthesizable FAIL:
                         # re-run on the host for exact status+message
-                        rr = self._materialize(prog,
-                                               resources[start + k])
+                        rr = self._materialize_row(
+                            j, prog, resources[start + k], k, pss)
                         if rr is not None:
                             rr.timestamp = ts
                     acc[k].append((p_idx, None if rr is None or
                                    rr is _HOST else rr))
+        self._count_pss_rows(pss)
         chunk_rows: List[List[EngineResponse]] = []
         for k in range(m):
             i = start + k
@@ -1416,6 +1530,7 @@ class BatchScanner:
         counts = np.zeros((m, 5), np.int32)
         fly: Dict[Tuple, Any] = {}
         bucket_idx = self._BUCKET_IDX
+        pss = self._pss_rows(sub_match, status, background_ok)
         for j, prog, p_idx, key, scored, category, severity in \
                 self._report_order():
             if not background_ok[j]:
@@ -1445,7 +1560,7 @@ class BatchScanner:
                     self._assemble_cells(
                         prog, j, p_idx, key, scored, category, severity,
                         sub, status, detail, fdet, resources, base, ts,
-                        stamp, fly, rows, row_pols, counts, tally)
+                        stamp, fly, rows, row_pols, counts, tally, pss)
                     continue
                 if st == STATUS_FAIL:
                     # FAIL messages hang off the per-row fail-detail
@@ -1455,7 +1570,7 @@ class BatchScanner:
                     self._assemble_fail_groups(
                         prog, j, p_idx, key, scored, category, severity,
                         sub, fdet, resources, base, ts, stamp, fly,
-                        rows, row_pols, counts, tally)
+                        rows, row_pols, counts, tally, pss)
                     continue
                 cell_key = (j, st, det)
                 cell = fly.get(cell_key)
@@ -1477,7 +1592,8 @@ class BatchScanner:
                             else coverage.REASON_UNSYNTHESIZABLE,
                             int(sub.size))
                     for k in sub.tolist():
-                        rr = self._materialize(prog, resources[base + k])
+                        rr = self._materialize_row(
+                            j, prog, resources[base + k], k, pss)
                         if rr is None:
                             continue
                         rr.timestamp = ts
@@ -1493,12 +1609,13 @@ class BatchScanner:
                     rows[k].append(result)
                     row_pols[k].append(p_idx)
                 counts[sub, bucket] += 1
+        self._count_pss_rows(pss)
         return rows, row_pols, counts
 
     def _assemble_fail_groups(self, prog, j, p_idx, key, scored,
                               category, severity, sub, fdet, resources,
                               base, ts, stamp, fly, rows, row_pols,
-                              counts, tally):
+                              counts, tally, pss=None):
         """Columnar FAIL assembly: rows group by the fail-detail
         columns the message synthesis actually reads (column j, or the
         anyPattern child block), one message per distinct detail."""
@@ -1522,7 +1639,8 @@ class BatchScanner:
                     tally.fallback_n(prog, coverage.REASON_UNSYNTHESIZABLE,
                                      int(sg.size))
                 for k in sg.tolist():
-                    rr = self._materialize(prog, resources[base + k])
+                    rr = self._materialize_row(
+                        j, prog, resources[base + k], k, pss)
                     if rr is None:
                         continue
                     rr.timestamp = ts
@@ -1553,7 +1671,7 @@ class BatchScanner:
     def _assemble_cells(self, prog, j, p_idx, key, scored, category,
                         severity, sub, status, detail, fdet, resources,
                         base, ts, stamp, fly, rows, row_pols, counts,
-                        tally):
+                        tally, pss=None):
         """Row-at-a-time assembly for the cells the columnar sweep
         cannot group: FAIL messages (per-row fail details) and
         context-loading programs (per-resource load outcomes)."""
@@ -1564,7 +1682,8 @@ class BatchScanner:
             rr = self._cell(prog, j, int(status[k, j]), int(detail[k, j]),
                             fdet[k], ts, fly, resources[base + k], tally)
             if rr is _HOST:
-                rr = self._materialize(prog, resources[base + k])
+                rr = self._materialize_row(j, prog, resources[base + k],
+                                           k, pss)
                 if rr is not None:
                     rr.timestamp = ts
             if rr is None or rr is _HOST:
@@ -1978,6 +2097,47 @@ class BatchScanner:
         pctx = self._pctx(self.policies[prog.policy_index], resource)
         rule = Rule(prog.rule_raw or {})
         return Validator(self.engine, pctx, rule).validate()
+
+    def _pss_rows(self, sub_match: np.ndarray, status: np.ndarray,
+                  cols_ok: Optional[np.ndarray] = None
+                  ) -> Optional[_PssRows]:
+        """The podSecurity rows of one assembly window, or None when
+        every host row of it re-runs the engine: no direct program, a
+        scan with a ``pctx_factory`` (admission: its contexts carry the
+        operation, and a DELETE gives no podSecurity response), or an
+        engine whose podSecurity evaluator or context loader is not the
+        stock one.  A row needs the full check set when a full-level
+        program's cell of it leaves the device."""
+        specs = self._pss_specs
+        engine = self.engine
+        if not specs or getattr(self, '_pctx_factory', None) is not None \
+                or engine.pss_evaluator is not evaluate_pod_security \
+                or type(engine.context_loader).load is not \
+                ContextLoader.load:
+            return None
+        full_rows = np.zeros(sub_match.shape[0], bool)
+        for j, spec in specs.items():
+            if spec.full and (cols_ok is None or cols_ok[j]):
+                full_rows |= sub_match[:, j] & (status[:, j] != STATUS_PASS)
+        return _PssRows(specs, full_rows)
+
+    @staticmethod
+    def _count_pss_rows(pss: Optional[_PssRows]) -> None:
+        if pss is not None:
+            from ..observability import device as devtel
+            devtel.add_pss_direct_rows(pss.evaluated, pss.shared)
+
+    def _materialize_row(self, j: int, prog: RuleProgram, resource: dict,
+                         k: int, pss: Optional[_PssRows]
+                         ) -> Optional[RuleResponse]:
+        """``_materialize`` for row ``k`` of a window: a podSecurity
+        program's row from the window's check evaluations where it can
+        be built there, else the engine's."""
+        if pss is not None:
+            rr = pss.response(j, k, resource)
+            if rr is not None:
+                return rr
+        return self._materialize(prog, resource)
 
     def _new_response(self, policy_index: int, resource: dict,
                       now: float,

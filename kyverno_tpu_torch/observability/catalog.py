@@ -83,6 +83,12 @@ METRICS: Dict[str, Metric] = {
         'counter', 'Time a scan-pipeline stage spent blocked on a full '
         'downstream queue (stage=intake|encode|h2d|device_eval|d2h) — '
         'which leg bounds the stream.'),
+    'kyverno_tpu_scan_pss_direct_rows_total': Metric(
+        'counter', 'Host rows of podSecurity rules that a background '
+        'scan\'s assembly built from the check library instead of a '
+        'host-engine run, by source=evaluated (the row ran the checks)|'
+        'shared (it reused another podSecurity rule\'s evaluation of '
+        'the same Pod in the same report window).'),
     # device-coverage ledger (observability/coverage.py)
     'kyverno_tpu_rule_placement_info': Metric(
         'gauge', '1 per compiled (policy, rule, path); placement=device|'

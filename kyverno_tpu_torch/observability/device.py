@@ -50,6 +50,7 @@ D2H_BYTES = 'kyverno_tpu_d2h_bytes_total'
 D2H_STALLS = 'kyverno_tpu_d2h_stalls_total'
 PIPELINE_INFLIGHT = 'kyverno_tpu_scan_pipeline_inflight_chunks'
 BACKPRESSURE = 'kyverno_tpu_scan_backpressure_seconds_total'
+PSS_DIRECT_ROWS = 'kyverno_tpu_scan_pss_direct_rows_total'
 
 #: the pipeline's work stages, in pipeline order (the report loop's
 #: ``wait``, collector pauses ``gc`` and the device time ``device`` are
@@ -642,6 +643,19 @@ def add_backpressure(stage: str, seconds: float) -> None:
     the direct measure of which leg bounds the stream."""
     if _registry is not None and seconds > 0:
         _registry.inc(BACKPRESSURE, float(seconds), stage=stage)
+
+
+def add_pss_direct_rows(evaluated: int, shared: int) -> None:
+    """One assembly window's podSecurity rows built from the check
+    library instead of the host engine (``compiler/scan.py``
+    ``_PssRows``): ``evaluated`` ran the checks, ``shared`` reused
+    another podSecurity program's evaluation of the same Pod."""
+    if _registry is not None:
+        if evaluated:
+            _registry.inc(PSS_DIRECT_ROWS, float(evaluated),
+                          source='evaluated')
+        if shared:
+            _registry.inc(PSS_DIRECT_ROWS, float(shared), source='shared')
 
 
 # -- d2h stall watchdog -----------------------------------------------------
