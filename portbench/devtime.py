@@ -2,32 +2,35 @@
 from the benchmark's side of the program's seams:
 
 * CUDA events around each call of the kernel wrapper ``status_vm`` (K1v)
-  of ``ops/kernels.py``: each launch's device time and rows;
+  of ``ops/kernels.py``: each launch's device time and rows, and the
+  host time at which it was called;
 * ``torch.profiler`` over the whole window, device activity only: the
   device's busy seconds (the union of its kernels and copies) and the
   operations that took most time;
 * the program's pipeline stages (``observability/device.py stage``),
   as host spans, to name what the host was doing in each idle gap.
 
-Nothing here runs in an untraced run.  Off the card it records spans
-only."""
+Each reading keeps to the window's counted intervals
+(``arith.steady_window``): launches called inside them, and device
+activity and idle gaps clipped to them.  Nothing here runs in an
+untraced run.  Off the card it records spans only."""
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 
 class Trace:
     def __init__(self, device):
         self.cuda = device.type == 'cuda'
-        self.launches: Dict[str, List[Tuple[int, object, object]]] = \
+        self.launches: Dict[str, List[Tuple[int, object, object, float]]] = \
             {'k1_vm': []}
         self.spans: List[Tuple[str, float, float]] = []
         self._undo = []
         self._prof = None
-        self.t0 = self.t1 = 0.0
+        self.t0 = 0.0
 
     # -- seams ---------------------------------------------------------
 
@@ -39,13 +42,14 @@ class Trace:
         def timed(*args, **kwargs):
             if not self.cuda:
                 return real(*args, **kwargs)
+            called = time.perf_counter()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             out = real(*args, **kwargs)
             end.record()
             rows = int(next(iter(args[0].values())).shape[0])
-            store.append((rows, start, end))
+            store.append((rows, start, end, called))
             return out
         setattr(kernels, attr, timed)
         self._undo.append(lambda: setattr(kernels, attr, real))
@@ -91,7 +95,6 @@ class Trace:
         if self.cuda:
             import torch
             torch.cuda.synchronize()
-        self.t1 = time.perf_counter()
         if self._prof is not None:
             self._prof.__exit__(None, None, None)
         for undo in reversed(self._undo):
@@ -100,10 +103,14 @@ class Trace:
 
     # -- readings ------------------------------------------------------
 
-    def kernel_ms(self, key: str) -> List[Tuple[int, float]]:
-        """``[(rows, device ms)]`` of each launch in the window."""
+    def kernel_ms(self, key: str, intervals: Sequence
+                  ) -> List[Tuple[int, float]]:
+        """``[(rows, device ms)]`` of each launch called inside one of
+        the counted ``intervals`` (``arith.Interval``, on the host
+        clock)."""
         return [(rows, start.elapsed_time(end))
-                for rows, start, end in self.launches[key]]
+                for rows, start, end, called in self.launches[key]
+                if any(iv.start <= called < iv.end for iv in intervals)]
 
     def _device_intervals(self) -> List[Tuple[float, float, str]]:
         """``[(start s, end s, name)]`` of the profiler's device
@@ -125,34 +132,39 @@ class Trace:
             s for s, _, _ in out) > 1e6 else 0.0
         return sorted((s - base, e - base, n) for s, e, n in out)
 
-    def device(self) -> Optional[dict]:
-        """``busy_s``, ``window_s`` and the breakdown: the device
-        operations with most time and the longest idle gaps, each named
-        by the host stage active in its middle.  None where the profiler
-        saw no device activity."""
-        window_s = self.t1 - self.t0
-        iv = self._device_intervals()
-        by_name: Dict[str, float] = {}
-        busy, gaps, end = 0.0, [], None
-        for s, e, name in iv:
-            by_name[name] = by_name.get(name, 0.0) + (e - s)
-            if end is None or s > end:
-                if end is not None:
-                    gaps.append((end, s))
-                busy += e - s
-                end = e
-            elif e > end:
-                busy += e - end
-                end = e
-        if not iv:
-            # the profiler saw no device activity: nothing to read
+    def device(self, intervals: Sequence) -> Optional[dict]:
+        """``busy_s``, ``window_s`` and the breakdown, over the counted
+        ``intervals`` (``arith.Interval``, on the host clock): the
+        device operations with most time and the longest idle gaps,
+        each named by the host stage active in its middle.  None where
+        the profiler saw no device activity in them."""
+        spans = [(iv.start - self.t0, iv.end - self.t0) for iv in intervals]
+        out = clipped_activity(self._device_intervals(), spans)
+        if out is None:
             return None
-        gaps.sort(key=lambda g: g[1] - g[0], reverse=True)
-        return {'busy_s': busy, 'window_s': window_s,
-                'device_ops': sorted(by_name.items(), key=lambda kv: -kv[1]
-                                     )[:10],
-                'idle_gaps': [[self.host_stage((a + b) / 2), b - a]
-                              for a, b in gaps[:10]]}
+        out['idle_gaps'] = [[self.host_stage((a + b) / 2), b - a]
+                            for a, b in out['idle_gaps']]
+        return out
+
+    def launch_lag_ms(self, key: str, kernel: str) -> Optional[list]:
+        """``[least, median, most]`` ms from each launch's call on the host
+        to the start of the first of the profiler's ``kernel`` that
+        starts after it, less 1 s: a check that the profiler's clock and
+        the host's agree.  None where the profiler saw no such kernel."""
+        import bisect
+        starts = sorted(s for s, _, name in self._device_intervals()
+                        if kernel in name)
+        lag = []
+        for *_, called in self.launches[key]:
+            at = called - self.t0
+            k = bisect.bisect_left(starts, at - 1.0)
+            if k < len(starts):
+                lag.append(1e3 * (starts[k] - at))
+        if not lag:
+            return None
+        lag.sort()
+        return [round(lag[0], 3), round(lag[len(lag) // 2], 3),
+                round(lag[-1], 3)]
 
     def host_stage(self, at: float) -> str:
         """The pipeline stages active ``at`` seconds into the window
@@ -160,6 +172,45 @@ class Trace:
         t = self.t0 + at
         names = sorted({n for n, a, b in self.spans if a <= t <= b})
         return '+'.join(names) or 'idle'
+
+
+def clipped_activity(activity: Sequence[Tuple[float, float, str]],
+                     spans: Sequence[Tuple[float, float]]
+                     ) -> Optional[dict]:
+    """The device's activity ``[(start, end, name)]`` clipped to
+    ``spans`` ``[(start, end)]`` (one clock; spans that touch are one):
+    ``busy_s``, the seconds in which some operation ran; ``window_s``,
+    the spans' seconds; ``device_ops``, the ten names with most seconds;
+    and ``idle_gaps``, the ten longest ``(start, end)`` in which nothing
+    ran, cut at the spans' edges.  None where nothing ran in them."""
+    merged: List[List[float]] = []
+    for a, b in sorted(spans):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    by_name: Dict[str, float] = {}
+    busy, gaps = 0.0, []
+    for lo, hi in merged:
+        end = lo
+        for s, e, name in activity:
+            s, e = max(s, lo), min(e, hi)
+            if e <= s:
+                continue
+            by_name[name] = by_name.get(name, 0.0) + (e - s)
+            if s > end:
+                gaps.append((end, s))
+            busy += max(0.0, e - max(s, end))
+            end = max(end, e)
+        if hi > end:
+            gaps.append((end, hi))
+    if not by_name:
+        return None
+    gaps.sort(key=lambda g: g[1] - g[0], reverse=True)
+    return {'busy_s': busy, 'window_s': sum(b - a for a, b in merged),
+            'device_ops': sorted(by_name.items(), key=lambda kv: -kv[1]
+                                 )[:10],
+            'idle_gaps': gaps[:10]}
 
 
 class GcWatch:

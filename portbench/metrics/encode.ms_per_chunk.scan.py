@@ -1,5 +1,5 @@
 """Encode (``compiler/encode.py``, in the forked workers): host ms per
-16,384-row chunk between the window's first and last flush."""
+16,384-row chunk in the window's counted intervals."""
 from portbench.readers import stage_ms_per_chunk
 
 

@@ -7,16 +7,28 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 
+def stages_recorded(obs: dict, stages: Sequence[str]) -> bool:
+    """Whether the program recorded every one of ``stages`` by the
+    window's last chunk-opening flush (a program older than a stage
+    records none of it)."""
+    snaps = obs.get('stages') or []
+    return bool(snaps) and snaps[-1] is not None and \
+        all(s in snaps[-1] for s in stages)
+
+
 def stage_ms_per_chunk(obs: dict, stages: Sequence[str]) -> Optional[float]:
     """Host milliseconds per scan chunk that the program's pipeline
-    stages ``stages`` took between the window's first and last report
-    flush (``ScanCapture``; a forked worker's encode counts in full)."""
-    flushes = obs.get('flushes') or []
-    if len(flushes) < 2 or flushes[0][2] is None:
+    stages ``stages`` took in the window's counted intervals
+    (``ScanCapture``, copied at each chunk-opening flush; a forked
+    worker's encode counts in full): each interval's stage seconds,
+    summed, over the counted chunks."""
+    intervals = obs.get('intervals') or []
+    snaps = obs.get('stages') or []
+    if not intervals or not snaps or snaps[0] is None:
         return None
-    first, last = flushes[0][2], flushes[-1][2]
-    seconds = sum(last.get(s, 0.0) - first.get(s, 0.0) for s in stages)
-    chunks = sum(rows for _, rows, _ in flushes[1:]) / obs['chunk']
+    seconds = sum(snaps[iv.first + 1].get(s, 0.0) - snaps[iv.first].get(s, 0.0)
+                  for iv in intervals for s in stages)
+    chunks = sum(iv.rows for iv in intervals) / obs['chunk']
     return 1e3 * seconds / chunks
 
 
@@ -30,7 +42,8 @@ def roofline_share(launches) -> Optional[float]:
 
 
 def idle_share(obs: dict) -> Optional[float]:
-    """Percent of the window in which the device ran nothing."""
+    """Percent of the window's counted intervals in which the device ran
+    nothing."""
     dev = obs.get('device')
     if not dev or not dev.get('busy_s'):
         return None

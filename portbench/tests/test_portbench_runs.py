@@ -32,6 +32,46 @@ def test_cell_runs_correct_without_jax(bench_copy, cell, trace):
     assert 'jax' not in err and 'blocked' not in err
 
 
+def _notes(err: str) -> dict:
+    """The ``portbench: <name> <json>`` notes of a run's standard error."""
+    out = {}
+    for line in err.splitlines():
+        if line.startswith('portbench: '):
+            name, _, value = line[len('portbench: '):].partition(' ')
+            try:
+                out[name] = json.loads(value)
+            except ValueError:
+                pass
+    return out
+
+
+def test_pass_ends_are_left_out_of_the_window(bench_copy):
+    """At the small sizes a pass is ten chunks of 128 Pods, and a window
+    of 8 counted seconds ends several: each pass's end and its next
+    pass's warm chunks are dropped from the rate, and every Pod yielded
+    meanwhile is still judged."""
+    from portbench import arith
+    rc, result, err = run_cell(bench_copy, 'smoke12.bgscan', 2**31 + 31)
+    assert rc == 0, err[-3000:]
+    assert result['correct'] is True, err[-3000:]
+    notes = _notes(err)
+    assert notes['passes_ended'] >= 1
+    assert len(notes['dropped_s']) == notes['passes_ended']
+    assert all(d > 0 for d in notes['dropped_s'])
+    assert notes['counted_s'] + sum(notes['dropped_s']) < notes['wall_s']
+    events = [tuple(e) for e in notes['flush_events']]
+    # the window closed in a counted interval, once 8 s were counted
+    assert arith.counts(events[-1][1], 128, 2, 1200)
+    assert notes['counted_s'] < 8 <= \
+        notes['counted_s'] + notes['wall_s'] - events[-1][0] + 1e-3
+    assert {p for _, _, p in events} == set(range(notes['passes_ended'] + 1))
+    intervals, rate = arith.steady_window(events, 128, 2, 1200)
+    assert rate == pytest.approx(
+        result['metrics']['scan_pods_per_s']['value'], rel=1e-3)
+    # Pods of the dropped intervals are recorded and judged too
+    assert result['attempted'] > sum(iv.rows for iv in intervals)
+
+
 @pytest.mark.parametrize('cell', CELLS)
 @pytest.mark.parametrize('fault', ['altered', 'half', 'float32'])
 def test_a_broken_timed_path_is_not_correct(bench_copy, cell, fault):

@@ -37,16 +37,21 @@ def test_the_readers_leave_out_a_program_without_the_stages():
     """A program that records none of the new stages (the parent of
     this benchmark's change) gives no reading, and no error."""
     import importlib.util
-    obs = {'chunk': 128,
-           'flushes': [(0.0, 0, {'report': 1.0, 'd2h': 0.1}),
-                       (2.0, 256, {'report': 3.0, 'd2h': 0.3})]}
+    from portbench import arith
+    flushes = [(0.0, 256, 0), (2.0, 384, 0)]
+    obs = {'chunk': 128, 'flushes': flushes,
+           'stages': [{'report': 1.0, 'd2h': 0.1},
+                      {'report': 3.0, 'd2h': 0.3}],
+           'intervals': arith.steady_window(flushes, 128, 2, 1200)[0]}
+    assert obs['intervals']
     for name in HOST + (DEVICE,):
         path = os.path.join(ROOT, 'portbench', 'metrics', name + '.py')
         spec = importlib.util.spec_from_file_location('m', path)
         module = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(module)
         assert module.read(obs) is None, name
-        assert module.read({'chunk': 128, 'flushes': []}) is None
+        assert module.read({'chunk': 128, 'flushes': [], 'stages': [],
+                            'intervals': []}) is None
 
 
 @pytest.fixture
@@ -72,6 +77,7 @@ def test_a_traced_run_on_the_card_reads_the_device_time(card):
         assert name in m, (name, sorted(m))
     assert m['assembly.cpu_ms_per_chunk.scan'] <= \
         m['assembly.ms_per_chunk.scan']
+    # the counted intervals' lengths
     gaps = None
     for line in proc.stderr.splitlines():
         if line.startswith('portbench: flush_gaps_s '):
